@@ -1,20 +1,25 @@
-"""The hand-written CUDA window-attention kernel against its plain PyTorch
-version on the GPU.  Skips without a CUDA device.  This file imports no JAX,
-so it runs on a machine without it:
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+GPU: the window-attention forward (with and without dropout), its backward,
+and the dropout keep mask.  Skips without a CUDA device.  This file imports
+no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_cuda.py
 
-Tolerances, relative to max|plain|: f32 1e-4 (sums in another order), bf16
-2e-2 (bf16 rounding at other points).  Layers and inputs come from
-``chip_smoke.attention_case`` (numpy seed 0)."""
+Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
+order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
+f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``).  The keep mask is
+bit-equal.  Layers and inputs come from ``chip_smoke.attention_case``
+(numpy seed 0)."""
 
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import attention_case
 from vit_grid_model_tpu_torch.ops import attention as tattn
 from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+from vit_grid_model_tpu_torch.ops.dropout import keep_mask
 from vit_grid_model_tpu_torch.ops.window import relative_position_indices
 
 pytestmark = pytest.mark.cuda
@@ -22,17 +27,24 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", [
+CASES = [
     (32, 32, 128, True, 0.0),       # the flagship layer
     (3, 16, 48, False, 0.0),        # odd head count, LN affine
     (2, 16, 32, True, -200.0),      # head 0 scores ~200 below head 1
     (3, 8, 40, True, 0.0),          # widths off the 16-multiples of wmma
-])
-def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
-                              offset):
+]
+
+
+def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
+                              offset):
+    _need_cuda()
     m, x, cond = attention_case(heads, dim_head, dim, conditioned, 60,
                                 offset, seed=0)
     dev = torch.device("cuda")
@@ -55,8 +67,7 @@ def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
 
 
 def test_kernel_rejects_shapes_out_of_range():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _need_cuda()
     m, _, cond = attention_case(2, 16, 32, True, 30, 0.0, seed=0)
     m = m.cuda()
     too_long = torch.zeros(30, 65, 32, device="cuda")
@@ -64,4 +75,112 @@ def test_kernel_rejects_shapes_out_of_range():
         cuda_attn.window_attention(
             m, too_long, torch.from_numpy(cond).cuda(),
             torch.zeros(65, 65, dtype=torch.long, device="cuda"),
+            windows_per_sample=30)
+
+
+@pytest.mark.parametrize("seed", [1234, 2 ** 31 - 2])
+@pytest.mark.parametrize("heads", [4, 3])
+def test_keep_mask_bit_equal(heads, seed):
+    _need_cuda()
+    before = cuda_attn.mask_launches
+    ours = cuda_attn.dropout_keep_mask(seed, 60, heads, 53, 0.1,
+                                       torch.device("cuda"))
+    assert cuda_attn.mask_launches == before + 1
+    assert torch.equal(ours, keep_mask(seed, 60, heads, 53, 0.1,
+                                       device=torch.device("cuda")))
+    assert torch.equal(ours.cpu(), keep_mask(seed, 60, heads, 53, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+def test_kernel_with_dropout_matches_plain(dtype, heads, dim_head, dim,
+                                           conditioned, offset):
+    _need_cuda()
+    dev = torch.device("cuda")
+    m, xt, ct, _, _ = chip_smoke.kernel_case(heads, dim_head, dim,
+                                             conditioned, 60, offset, dev,
+                                             dtype)
+    bias_idx = relative_position_indices(7, 4, device=dev)
+    with torch.inference_mode():
+        ref = tattn.attention(m, xt, ct, bias_idx, windows_per_sample=30,
+                              dropout_mask=keep_mask(77, 60, heads, 53, 0.25,
+                                                     device=dev))
+        ours = cuda_attn.window_attention(m, xt, ct, bias_idx,
+                                          windows_per_sample=30, seed=77,
+                                          dropout_rate=0.25)
+    ref, ours = ref.float(), ours.float()
+    assert torch.isfinite(ours).all()
+    err = (ours - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+def test_backward_matches_plain(rate, dtype, heads, dim_head, dim,
+                                conditioned, offset):
+    """Every output of the backward kernel against autograd through the
+    plain forward with the same mask; a second launch is bit-identical."""
+    _need_cuda()
+    _, xt, _, k, dy = chip_smoke.kernel_case(
+        heads, dim_head, dim, conditioned, 60, offset, torch.device("cuda"),
+        dtype)
+    before = cuda_attn.bwd_launches
+    errs = chip_smoke.bwd_errors(xt, k, dy, 2 ** 31 - 2, rate)
+    assert cuda_attn.bwd_launches == before + 2
+    tol = chip_smoke.BWD_TOLERANCE[str(dtype).split(".")[-1]]
+    bad = {g: (e, s) for g, (e, s) in errs.items() if not e <= tol * s}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("conditioned", [True, False])
+def test_autograd_reaches_module_parameters(conditioned):
+    """``window_attention`` on CUDA tensors (forward and backward kernels)
+    gives the module's parameters, the condition and x the gradients that
+    autograd through the plain version gives, in f32."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    m, x, cond = attention_case(3, 16, 48, conditioned, 60, 0.0, seed=1)
+    m = m.to(dev).train()
+    bias_idx = relative_position_indices(7, 4, device=dev)
+
+    def grads(fn):
+        m.zero_grad()
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        ct = (None if cond is None
+              else torch.from_numpy(cond).to(dev).requires_grad_())
+        out = fn(xt, ct)
+        (out.float() ** 2).sum().backward()
+        got = {n: p.grad.clone() for n, p in m.named_parameters()
+               if p.grad is not None}
+        got["x"] = xt.grad
+        if ct is not None:
+            got["cond"] = ct.grad
+        return got
+
+    ref = grads(lambda xt, ct: tattn.attention(
+        m, xt, ct, bias_idx, windows_per_sample=30,
+        dropout_mask=keep_mask(5, 60, 3, 53, 0.1, device=dev)))
+    before = (cuda_attn.launches, cuda_attn.bwd_launches)
+    ours = grads(lambda xt, ct: cuda_attn.window_attention(
+        m, xt, ct, bias_idx, windows_per_sample=30, seed=5,
+        dropout_rate=0.1))
+    torch.cuda.synchronize()
+    assert (cuda_attn.launches, cuda_attn.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert ours.keys() == ref.keys()
+    for name, g in ref.items():
+        err = (ours[name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item(), (name, err)
+
+
+def test_backward_rejects_width_out_of_range():
+    _need_cuda()
+    m, x, cond = attention_case(2, 16, 256, True, 30, 0.0, seed=0)
+    m = m.cuda()
+    xt = torch.from_numpy(x).cuda().requires_grad_()
+    with pytest.raises(ValueError):
+        cuda_attn.window_attention(
+            m, xt, torch.from_numpy(cond).cuda(),
+            relative_position_indices(7, 4, device=torch.device("cuda")),
             windows_per_sample=30)

@@ -12,14 +12,15 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 15, names
+assert len(names) >= 21, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 from vit_grid_model_tpu_torch.ops.cuda import attention
 bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]
 assert not bad, bad
-assert attention._lib is None and attention.launches == 0
+assert attention._lib is None
+assert attention.launches == attention.bwd_launches == 0
 print(len(names))
 """
 

@@ -141,3 +141,20 @@ def test_empty_pm_channel_list_is_a_no_op_on_the_nhwc_path():
     np.testing.assert_array_equal(out.numpy(), x)
     with pytest.raises(IndexError):
         jax_standardize(jnp.asarray(x), cfg, pv)
+
+
+def test_short_timestamp_window_reads_the_last_row():
+    """With 5 timestamp rows the time conditioning reads row 4, as JAX's
+    clamped gather of row 6 does; before the repair the port raised
+    IndexError here."""
+    cfg = _cfg(16, 4)
+    params = metnet3_init(jax.random.PRNGKey(4), cfg)
+    model = params_from_jax(params, cfg)
+    stack, ts = _inputs(3)
+    x = _stage(stack, cfg)
+    short = np.ascontiguousarray(ts[:, :5])
+    ours = _port_forward(model, x, short)
+    assert _rel(ours, _jax_forward(params, cfg, x, short)) <= REL
+    clamped = ts.copy()
+    clamped[:, 6] = ts[:, 4]
+    np.testing.assert_array_equal(ours, _port_forward(model, x, clamped))

@@ -216,3 +216,47 @@ def test_mbconv(dim_in, dim_out, downsample):
                            else torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)
     _close(_nhwc(block(_nchw(x))), ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 4, 6), (1, 3, 3, 4)])
+def test_batch_norm_train(shape):
+    """Training BatchNorm: output with the biased batch variance and the
+    running-stat update (momentum 0.1, unbiased variance) against
+    ``ops/nn.py::batch_norm(training=True)``."""
+    c = shape[-1]
+    p = _bn_params(c, 3)
+    x = _rand(*shape, seed=4, scale=2.0) + 0.5
+    ref, stats = jnn.batch_norm(p, jnp.asarray(x), training=True)
+    bn = torch.nn.BatchNorm2d(c)
+    _load_bn(bn, p)
+    y, mean, var = tnn.batch_norm_train(_nchw(x), bn)
+    _close(_nhwc(y), ref)
+    _close(mean, stats["mean"])
+    _close(var, stats["var"])
+    assert not mean.requires_grad and not var.requires_grad
+
+
+@pytest.mark.parametrize("dim_in,dim_out,downsample", [
+    (16, 16, True), (16, 16, False), (8, 16, True)])
+def test_mbconv_train(dim_in, dim_out, downsample):
+    """MBConv in training mode (``mbconv_train``): output and the three
+    BatchNorms' updated running statistics, in order."""
+    p = jmb.mbconv_init(KEY, dim_in, dim_out, downsample=downsample)
+    for i, name in enumerate(("bn1", "bn2", "bn3")):
+        p[name] = _bn_params(p[name]["scale"].shape[0], 30 + i)
+    x = _rand(2, 7, 6, dim_in, seed=14)
+    ref, ref_stats = jmb.mbconv_train(p, jnp.asarray(x), dim_in=dim_in,
+                                      dim_out=dim_out, downsample=downsample)
+    block = tmb.mbconv(dim_in, dim_out, downsample=downsample)
+    residual = dim_in == dim_out and not downsample
+    sd = {}
+    torch_export._emit_mbconv(sd, "m", p, residual=residual)
+    block.load_state_dict({k[2:]: _t(v) if v.dtype != np.int64
+                           else torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+    stats = []
+    _close(_nhwc(block(_nchw(x), stats)), ref)
+    assert len(stats) == 3
+    for (_, mean, var), name in zip(stats, ("bn1", "bn2", "bn3")):
+        _close(mean, ref_stats[name]["mean"])
+        _close(var, ref_stats[name]["var"])

@@ -1,9 +1,9 @@
 // Fused MaxViT window-attention forward for Hopper (sm_90a).
 //
 // Replaces vit_grid_model_tpu/ops/pallas/attention.py::_attention_kernel
-// (the no-dropout branch, per-head layout).  For every window of n <= 64
-// tokens it computes, in one CTA and without writing any intermediate to
-// device memory:
+// (per-head layout), with its in-kernel attention dropout.  For every
+// window of n <= 64 tokens it computes, in one CTA and without writing any
+// intermediate to device memory:
 //
 //   xn   = LayerNorm(x) (eps 1e-5, no affine) * gamma + beta    (FiLM, or
 //          the LN affine for unconditioned layers, or nothing)
@@ -12,6 +12,8 @@
 //     q <- q * rsqrt(max(sum q^2, 1e-24)) * sqrt(dh) * gq_h   (same for k)
 //     S  = q k^T + bias_h, -1e30 on key columns >= n
 //     P  = softmax(S) with this head's own row max
+//     P *= keep(seed, window, h, row, col)   (training dropout, rate > 0;
+//          dropout_hash.cuh, the same values the backward regenerates)
 //     Y += (P . v) . Wout_h
 //
 // in f32.  For bf16 inputs the normalized x and each head's P.v are rounded
@@ -38,49 +40,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "attention_common.cuh"
+#include "dropout_hash.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 thread grid for the 64-row tiles
-constexpr int kRows = 64;      // token rows per window tile (n <= 64)
 constexpr int kChunkK = 32;    // rows of a staged weight tile
 constexpr int kChunkN = 64;    // columns of one GEMM pass
 constexpr int kMaxDim = 256;   // model width
 constexpr int kMaxDimHead = 64;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round an f32 value to T's precision, keeping it in f32.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // C[r][c] (+)= sum_k A[r][k] * B[k][c] for r < 64, c < N, k < K.
 // A: shared f32 (row stride lda); B: global, row-major with stride ldb;
@@ -136,44 +105,6 @@ __device__ void gemm_rows64(const float* A, int lda, const W* __restrict__ B,
   __syncthreads();
 }
 
-// C[64 x N] (+)= A[64 x K] * B[K x N] on the tensor cores (bf16 operands,
-// f32 sums), K and N multiples of 16.  A: shared, row stride lda; B:
-// global, row-major with stride ldb; C: shared f32, row stride ldc.  Warp w
-// takes the 16x16 output tiles w, w+8, ...; consecutive warps share B's
-// column tile.
-__device__ void wmma_rows64(const __nv_bfloat16* A, int lda,
-                            const __nv_bfloat16* __restrict__ B, int ldb,
-                            float* C, int ldc, int K, int N,
-                            bool accumulate) {
-  namespace wmma = nvcuda::wmma;
-  const int warp = threadIdx.x >> 5;
-  const int tiles = (kRows / 16) * (N / 16);
-  for (int t = warp; t < tiles; t += kThreads / 32) {
-    const int r0 = (t % (kRows / 16)) * 16;
-    const int c0 = (t / (kRows / 16)) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, C + r0 * ldc + c0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + r0 * lda + k, lda);
-      wmma::load_matrix_sync(b, B + static_cast<size_t>(k) * ldb + c0, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + r0 * ldc + c0, acc, ldc, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-__host__ __device__ constexpr size_t align128(size_t b) {
-  return (b + 127) & ~static_cast<size_t>(127);
-}
-
 // Shared-memory plan of one CTA: element strides and byte offsets.
 // kTC keeps the normalized x and each head's P.v in bf16 for the tensor
 // cores (strides padded to the 16-byte multiples wmma needs); otherwise
@@ -215,7 +146,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float* __restrict__ q_gamma, const float* __restrict__ k_gamma,
         const T* __restrict__ wout, const float* __restrict__ bias,
         T* __restrict__ out, int n, int dim, int heads, int dh,
-        int windows_per_sample, int has_film) {
+        int windows_per_sample, int has_film, unsigned seed,
+        unsigned keep_threshold, float keep_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan plan = make_plan<kTC>(dim, dh);
   const int ldx = plan.ldx;
@@ -283,7 +215,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     // q | k | v = xn . Wqkv_h      (Wqkv_h: dim x 3dh, row-major)
     const T* wq = wqkv + static_cast<size_t>(h) * dim * 3 * dh;
     if constexpr (kTC)
-      wmma_rows64(xs_h, ldx, wq, 3 * dh, qkv, ldq, dim, 3 * dh, false);
+      wmma_mm<nvcuda::wmma::row_major, nvcuda::wmma::row_major>(
+          kRows, 3 * dh, dim, xs_h, ldx, wq, 3 * dh, qkv, ldq, false);
     else
       gemm_rows64(xs, ldx, wq, 3 * dh, qkv, ldq, dim, 3 * dh, false, stage);
 
@@ -335,7 +268,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     __syncthreads();
 
-    // softmax per row with this head's own row max
+    // softmax per row with this head's own row max, then the dropout
+    // keep value on the real (row, col) scores
+    const int n_pad = vgm_hash_n_pad(n);
     for (int r = warp; r < kRows; r += nwarps) {
       float* sr = s + r * kRows;
       const float v0 = sr[lane];
@@ -344,8 +279,18 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float e0 = expf(v0 - m);
       const float e1 = expf(v1 - m);
       const float den = warp_sum(e0 + e1);
-      sr[lane] = e0 / den;
-      sr[lane + 32] = e1 / den;
+      float p0 = e0 / den;
+      float p1 = e1 / den;
+      if (keep_threshold != 0 && r < n) {
+        if (lane < n)
+          p0 *= vgm_keep(seed, win, h, r, lane, heads, n_pad, keep_threshold,
+                         keep_scale);
+        if (lane + 32 < n)
+          p1 *= vgm_keep(seed, win, h, r, lane + 32, heads, n_pad,
+                         keep_threshold, keep_scale);
+      }
+      sr[lane] = p0;
+      sr[lane + 32] = p1;
     }
     __syncthreads();
 
@@ -374,7 +319,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     // y += o . Wout_h      (Wout_h: dh x dim, row-major)
     const T* wo = wout + static_cast<size_t>(h) * dh * dim;
     if constexpr (kTC)
-      wmma_rows64(o_h, plan.ldo, wo, dim, y, dim, dh, dim, true);
+      wmma_mm<nvcuda::wmma::row_major, nvcuda::wmma::row_major>(
+          kRows, dim, dh, o_h, plan.ldo, wo, dim, y, dim, true);
     else
       gemm_rows64(qkv, ldq, wo, dim, y, dim, dh, dim, true, stage);
   }
@@ -388,6 +334,7 @@ int launch(const void* x, const void* gamma, const void* beta,
            const void* wqkv, const void* q_gamma, const void* k_gamma,
            const void* wout, const void* bias, void* out, int bw, int n,
            int dim, int heads, int dh, int windows_per_sample, int has_film,
+           unsigned seed, unsigned keep_threshold, float keep_scale,
            cudaStream_t stream) {
   const size_t smem = make_plan<kTC>(dim, dh).bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -399,7 +346,8 @@ int launch(const void* x, const void* gamma, const void* beta,
       static_cast<const float*>(beta), static_cast<const T*>(wqkv),
       static_cast<const float*>(q_gamma), static_cast<const float*>(k_gamma),
       static_cast<const T*>(wout), static_cast<const float*>(bias),
-      static_cast<T*>(out), n, dim, heads, dh, windows_per_sample, has_film);
+      static_cast<T*>(out), n, dim, heads, dh, windows_per_sample, has_film,
+      seed, keep_threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,27 +356,33 @@ int launch(const void* x, const void* gamma, const void* beta,
 // x, out: (bw, n, dim) in f32 or bf16 (is_bf16); gamma, beta: f32
 // (bw / windows_per_sample, dim), read only when has_film; wqkv: (heads,
 // dim, 3*dh) and wout: (heads, dh, dim) in x's type; q_gamma, k_gamma:
-// f32 (heads, dh); bias: f32 (heads, n, n).  All contiguous.  Launches on
+// f32 (heads, dh); bias: f32 (heads, n, n).  All contiguous.  Dropout:
+// keep_threshold = 0 turns it off, else see dropout_hash.cuh.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int vgm_window_attention_fwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* q_gamma, const void* k_gamma, const void* wout,
     const void* bias, void* out, int bw, int n, int dim, int heads, int dh,
-    int windows_per_sample, int has_film, int is_bf16, void* stream) {
+    int windows_per_sample, int has_film, int is_bf16, int seed,
+    int keep_threshold, float keep_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned sd = static_cast<unsigned>(seed);
+  const unsigned thr = static_cast<unsigned>(keep_threshold);
   if (n < 1 || n > kRows || dim < 1 || dim > kMaxDim || dh < 1 ||
       dh > kMaxDimHead)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && dim % 16 == 0 && dh % 16 == 0)
     return launch<__nv_bfloat16, true>(x, gamma, beta, wqkv, q_gamma, k_gamma,
                                        wout, bias, out, bw, n, dim, heads, dh,
-                                       windows_per_sample, has_film, st);
+                                       windows_per_sample, has_film, sd, thr,
+                                       keep_scale, st);
   if (is_bf16)
     return launch<__nv_bfloat16, false>(x, gamma, beta, wqkv, q_gamma,
                                         k_gamma, wout, bias, out, bw, n, dim,
                                         heads, dh, windows_per_sample,
-                                        has_film, st);
+                                        has_film, sd, thr, keep_scale, st);
   return launch<float, false>(x, gamma, beta, wqkv, q_gamma, k_gamma, wout,
                               bias, out, bw, n, dim, heads, dh,
-                              windows_per_sample, has_film, st);
+                              windows_per_sample, has_film, sd, thr,
+                              keep_scale, st);
 }

@@ -1,5 +1,5 @@
-"""MaxViT backbone, eval mode: per layer [MBConv -> block attention -> grid
-attention] with register tokens and FiLM lead-time conditioning.
+"""MaxViT backbone: per layer [MBConv -> block attention -> grid attention]
+with register tokens and FiLM lead-time conditioning.
 
 Counterpart of ``vit_grid_model_tpu/models/maxvit.py::maxvit_apply``.  All
 windows of a layer go through one window-attention call
@@ -12,11 +12,16 @@ on the CPU).  Quirks kept:
 * block-attention registers are per window; before grid attention they are
   mean-reduced across a sample's windows and repeated sample-major;
 * the attention residual (+x) includes the register tokens.
+
+Training, the counterpart of ``maxvit_apply(training=True)``: MBConv
+batch-norms use batch statistics and append their updated running
+statistics to ``bn_stats``; each attention call draws dropout at the
+layer's rate from its own seed (two seeds per layer: block, then grid).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -46,9 +51,10 @@ class MaxViT(nn.Module):
     def __init__(self, dim: int, *, depth: Tuple[int, ...], cond_dim: int,
                  heads: int, dim_head: int, window_size: int,
                  mbconv_expansion_rate: int, mbconv_shrinkage_rate: float,
-                 num_register_tokens: int):
+                 num_register_tokens: int, dropout: float = 0.0):
         super().__init__()
         self.window_size = window_size
+        self.dropout = dropout
         self.num_register_tokens = num_register_tokens
         attn = dict(cond_dim=cond_dim, heads=heads, dim_head=dim_head,
                     window_size=window_size)
@@ -69,13 +75,22 @@ class MaxViT(nn.Module):
             W.relative_position_indices(window_size, num_register_tokens),
             persistent=False)
 
-    def forward(self, x: Tensor, cond: Tensor) -> Tensor:
+    def forward(self, x: Tensor, cond: Tensor, *,
+                seeds: Optional[Sequence[int]] = None,
+                bn_stats: Optional[List] = None) -> Tensor:
         """x: (B, C, H, W) with H, W divisible by the window size;
-        cond: (B, cond_dim).  Returns (B, C', H, W)."""
+        cond: (B, cond_dim).  Returns (B, C', H, W).
+
+        Training: ``seeds`` holds two dropout seeds per layer, and turns
+        attention dropout on at ``self.dropout``; a ``bn_stats`` list turns
+        on training-mode MBConv batch-norms, which append to it."""
         w, nr = self.window_size, self.num_register_tokens
-        for (conv, block_attn, grid_attn), registers in zip(
-                self.layers, self.register_tokens):
-            x = conv(x)
+        for li, ((conv, block_attn, grid_attn), registers) in enumerate(zip(
+                self.layers, self.register_tokens)):
+            block_seed = grid_seed = None
+            if seeds is not None:
+                block_seed, grid_seed = seeds[2 * li], seeds[2 * li + 1]
+            x = conv(x, bn_stats)
             b, d = x.shape[0], x.shape[1]
             x = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
 
@@ -83,7 +98,7 @@ class MaxViT(nn.Module):
             xw, dims = W.block_partition(x, w)
             nwin = dims[1] * dims[2]
             r = registers.expand(xw.shape[0], nr, d)
-            xw, r = self._attend(block_attn, xw, r, cond, nwin)
+            xw, r = self._attend(block_attn, xw, r, cond, nwin, block_seed)
             x = W.block_reverse(xw, w, dims)
 
             # grid (strided-window) attention; registers averaged over the
@@ -92,15 +107,16 @@ class MaxViT(nn.Module):
             xw, dims = W.grid_partition(x, w)
             nwin = dims[1] * dims[2]
             r = r.repeat_interleave(nwin, dim=0)
-            xw, r = self._attend(grid_attn, xw, r, cond, nwin)
+            xw, r = self._attend(grid_attn, xw, r, cond, nwin, grid_seed)
             x = W.grid_reverse(xw, w, dims).permute(0, 3, 1, 2)
         return x
 
     def _attend(self, p: Attention, xw: Tensor, registers: Tensor,
-                cond: Tensor, nwin: int):
+                cond: Tensor, nwin: int, seed: Optional[int]):
         tokens = torch.cat([registers, xw], dim=1)          # (Bw, nr + n, d)
-        out = window_attention(p, tokens, cond, self.bias_indices,
-                               windows_per_sample=nwin)
+        out = window_attention(
+            p, tokens, cond, self.bias_indices, windows_per_sample=nwin,
+            seed=seed, dropout_rate=self.dropout if seed is not None else 0.0)
         tokens = out + tokens                               # incl. registers
         nr = self.num_register_tokens
         return tokens[:, nr:], tokens[:, :nr]

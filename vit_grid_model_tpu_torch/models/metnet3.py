@@ -1,10 +1,13 @@
-"""MetNet3, eval mode: pad -> resnet -> downsample -> MaxViT -> upsample ->
-resnet -> 1x1 head, with the per-lead batch expansion and FiLM conditioning.
+"""MetNet3: pad -> resnet -> downsample -> MaxViT -> upsample -> resnet ->
+1x1 head, with the per-lead batch expansion and FiLM conditioning.
 
 Counterpart of ``vit_grid_model_tpu/models/metnet3.py::metnet3_apply``
 (the PM2.5 regression head).  The compute dtype is the parameters' dtype:
 ``model.to(torch.bfloat16)`` is the bf16 throughput mode, whose head output
-is cast back to f32 before de-standardization.  Quirks kept:
+is cast back to f32 before de-standardization (training runs bf16 over f32
+master weights through ``train/trainer.py::model_forward``).  In training
+mode (``model.train()``) the MBConv batch-norms use batch statistics and
+the window attention drops out at ``cfg.dropout``.  Quirks kept:
 
 * the PM2.5 cycle channels are standardized inside forward, and the
   output de-standardized;
@@ -12,7 +15,8 @@ is cast back to f32 before de-standardization.  Quirks kept:
   end;
 * each sample is repeated L times sample-major, with lead times 1..L
   tiled per sample;
-* the time conditioning reads timestamps row 6;
+* the time conditioning reads timestamps row 6, clamped to the last row
+  for shorter windows, as JAX's gather clamps;
 * the month/day/hour embeddings are concatenated along dim 0 and then
   viewed per row, which mixes rows across the batch.
 
@@ -22,10 +26,12 @@ stem and the host-prepared (B, Hp, Wp, T*C) input, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from vit_grid_model_tpu.core.config import MetNet3Config
 from vit_grid_model_tpu_torch.models.maxvit import MaxViT
@@ -197,7 +203,7 @@ class MetNet3(nn.Module):
             window_size=cfg.vit_window_size,
             mbconv_expansion_rate=cfg.mbconv_expansion_rate,
             mbconv_shrinkage_rate=cfg.mbconv_shrinkage_rate,
-            num_register_tokens=cfg.num_register_tokens)
+            num_register_tokens=cfg.num_register_tokens, dropout=cfg.dropout)
         self.up = nn.ConvTranspose2d(ch, ch, 2, stride=2)
         self.resnet2 = ResnetBlocks(ch, ch, cfg.resnet_block_depth,
                                     cfg.lead_time_emb_dim)
@@ -247,11 +253,32 @@ class MetNet3(nn.Module):
             out = block(out, cond)
         return out
 
-    def forward(self, x: Tensor, timestamps: Tensor) -> Tensor:
+    def forward(self, x: Tensor, timestamps: Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                bn_stats: Optional[List] = None,
+                remat: bool = False) -> Tensor:
         """x: (B, T, C, H, W), or (B, Hp, Wp, T*C) zero-padded with the PM
         channels raw when ``cfg.nhwc_input``; timestamps: (B, T', 4) raw
-        (year, month, day, hour) rows.  Returns (B, L, H, W) f32 fields."""
+        (year, month, day, hour) rows.  Returns (B, L, H, W) f32 fields.
+
+        In training mode, ``bn_stats`` (a list) receives each MBConv
+        batch-norm's updated running statistics as ``(bn, mean, var)``, and
+        with ``cfg.dropout > 0`` each attention call's dropout seed is drawn
+        from ``generator``, before the backbone, so that ``remat``
+        (``torch.utils.checkpoint`` over the backbone) recomputes the same
+        masks."""
         cfg = self.cfg
+        seeds = None
+        if self.training:
+            if bn_stats is None:
+                raise ValueError("a training forward needs a bn_stats list")
+            if cfg.dropout > 0.0:
+                if generator is None:
+                    raise ValueError("a training forward with dropout needs "
+                                     "a torch.Generator")
+                seeds = torch.randint(0, 2 ** 31 - 1,
+                                      (2 * sum(cfg.depth_tuple),),
+                                      generator=generator).tolist()
         B = x.shape[0]
         L = cfg.end_lead_time
         dtype = self.up.weight.dtype
@@ -279,7 +306,8 @@ class MetNet3(nn.Module):
 
         time_feats = None
         if cfg.concat_time_to_input:
-            ts6 = timestamps[:, 6, :].repeat_interleave(L, dim=0)   # (BL, 4)
+            row = min(6, timestamps.shape[1] - 1)
+            ts6 = timestamps[:, row, :].repeat_interleave(L, dim=0)  # (BL, 4)
             ts6 = torch.cat([ts6, lead_times[:, None].to(ts6.dtype)], dim=-1)
             time_feats = self._condition_time(ts6, B * L)
 
@@ -294,7 +322,26 @@ class MetNet3(nn.Module):
                 x = torch.cat([x, maps.to(x.dtype)], dim=1)
             out = self.resnet1(x, cond)
         out = vnn.max_pool_2x(out)
-        out = self.vit(out, cond)
+        if not self.training:
+            out = self.vit(out, cond)
+        elif remat:
+            bns = []
+            # the recompute runs in the backward, after a functional_call
+            # (bf16 over f32 masters) has put the masters back: it gets the
+            # parameters this forward sees
+            vit_params = dict(self.vit.named_parameters())
+
+            def backbone(h, c):
+                stats = []
+                y = functional_call(self.vit, vit_params, (h, c),
+                                    dict(seeds=seeds, bn_stats=stats))
+                bns[:] = [bn for bn, _, _ in stats]
+                return (y, *[t for _, m, v in stats for t in (m, v)])
+
+            out, *flat = checkpoint(backbone, out, cond, use_reentrant=False)
+            bn_stats.extend(zip(bns, flat[0::2], flat[1::2]))
+        else:
+            out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats)
         out = vnn.conv2d_transpose(out, self.up.weight, self.up.bias, stride=2)
         out = self.resnet2(out, cond)
         out = unpad_hw(out, pv)

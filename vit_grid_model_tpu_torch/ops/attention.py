@@ -1,17 +1,19 @@
 """Windowed multi-head attention with QK-RMSNorm, relative-position bias,
 register tokens and FiLM lead-time conditioning: the plain PyTorch version.
 
-Counterpart of ``vit_grid_model_tpu/ops/attention.py`` (eval mode).  It is
-the reference that the hand-written CUDA kernel
-(``ops/cuda/attention.py``) is held against, and what that wrapper runs for
-tensors on the CPU.  The pinned details:
+Counterpart of ``vit_grid_model_tpu/ops/attention.py``.  It is the
+reference that the hand-written CUDA kernels (``ops/cuda/attention.py``)
+are held against, and what that wrapper runs for tensors on the CPU.  It
+stays differentiable by autograd.  The pinned details:
 
 * the pre-norm LayerNorm has no affine when conditioned;
 * FiLM ``x * gamma + beta`` broadcasts each sample's gamma/beta over its
   windows (sample-major);
 * queries/keys go through QK-RMSNorm scaled by sqrt(dim_head), and no
   ``dim_head ** -0.5`` is applied;
-* the bias table has (2w-1)^2 + 1 rows; register rows/cols read the last.
+* the bias table has (2w-1)^2 + 1 rows; register rows/cols read the last;
+* training dropout multiplies the softmax output by a pre-scaled keep mask
+  (``ops/dropout.py::keep_mask``), as ``dropout_mask`` does in JAX.
 """
 
 from __future__ import annotations
@@ -44,10 +46,12 @@ class Attention(nn.Module):
 
 
 def attention(p: Attention, x: Tensor, cond: Optional[Tensor],
-              bias_indices: Tensor, *, windows_per_sample: int) -> Tensor:
+              bias_indices: Tensor, *, windows_per_sample: int,
+              dropout_mask: Optional[Tensor] = None) -> Tensor:
     """x: (Bw, n, dim) with Bw = B_cond * windows_per_sample (sample-major);
-    cond: (B_cond, cond_dim) or None; bias_indices: (n, n).  Returns
-    (Bw, n, dim) in x's dtype.  Scores and P.v accumulate in f32."""
+    cond: (B_cond, cond_dim) or None; bias_indices: (n, n); dropout_mask:
+    optional pre-scaled keep mask (Bw, heads, n, n).  Returns (Bw, n, dim)
+    in x's dtype.  Scores and P.v accumulate in f32."""
     bw, n, _ = x.shape
     heads = p.heads
 
@@ -73,6 +77,39 @@ def attention(p: Attention, x: Tensor, cond: Optional[Tensor],
     sim = sim + bias.permute(2, 0, 1)[None]
 
     attn = sim.softmax(dim=-1).to(v.dtype)
+    if dropout_mask is not None:
+        attn = attn * dropout_mask.to(attn.dtype)
     out = torch.matmul(attn.float(), v.float()).to(v.dtype)
     out = out.transpose(1, 2).reshape(bw, n, -1)
     return vnn.linear(out, p.to_out[0].weight)
+
+
+def attention_core(x: Tensor, gamma: Tensor, beta: Tensor, wqkv: Tensor,
+                   wout: Tensor, qg: Tensor, kg: Tensor, bias: Tensor, *,
+                   windows_per_sample: int, has_film: bool,
+                   dropout_mask: Optional[Tensor] = None) -> Tensor:
+    """``attention`` on the CUDA kernels' inputs (``ops/cuda/attention.py::
+    kernel_inputs``): gamma/beta (Bw / windows_per_sample, dim) f32, used
+    when ``has_film``; wqkv (heads, dim, 3*dh) and wout (heads, dh, dim) in
+    x's dtype; qg, kg (heads, dh) and bias (heads, n, n) f32.  The plain
+    version that the kernels' gradients are held against, through
+    autograd."""
+    bw, n, _ = x.shape
+    heads, _, three_dh = wqkv.shape
+    dh = three_dh // 3
+    x = vnn.layer_norm(x)
+    if has_film:
+        def per_window(t):
+            return t.to(x.dtype).repeat_interleave(windows_per_sample,
+                                                   dim=0)[:, None]
+        x = x * per_window(gamma) + per_window(beta)
+    qkv = torch.einsum("bnc,hce->bhne", x, wqkv)          # (Bw, h, n, 3dh)
+    q, k, v = qkv.split(dh, dim=-1)
+    q = vnn.qk_rms_norm(q, qg.to(x.dtype)[:, None])
+    k = vnn.qk_rms_norm(k, kg.to(x.dtype)[:, None])
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias[None]
+    attn = sim.softmax(dim=-1).to(v.dtype)
+    if dropout_mask is not None:
+        attn = attn * dropout_mask.to(attn.dtype)
+    out = torch.matmul(attn.float(), v.float()).to(v.dtype)
+    return torch.einsum("bhnd,hdc->bnc", out, wout)

@@ -1,15 +1,24 @@
-"""Fused window-attention forward on the GPU: the wrapper of the hand-written
-CUDA kernel ``csrc/window_attention_fwd.cu``, its ctypes binding and its
-launch counter.
+"""Fused window attention on the GPU: the wrappers of the hand-written CUDA
+kernels under ``csrc/``, their ctypes binding and their launch counters.
 
-``window_attention`` takes the same arguments as the plain version
-``ops.attention.attention``.  For a tensor on the CPU it runs that plain
-version; for a CUDA tensor it launches the kernel or raises.  There is no
-fallback from one to the other.
+* ``window_attention_fwd.cu`` (K1, the forward, with in-kernel dropout);
+* ``window_attention_bwd.cu`` (K3, the backward, with the same dropout
+  mask regenerated from the seed);
+* ``dropout_keep_mask.cu`` (K1-d alone: writes the keep mask, so that the
+  card can compare it with ``ops/dropout.py::keep_mask``).
+
+``window_attention`` takes the arguments of the plain version
+``ops.attention.attention`` plus a dropout seed and rate.  For a tensor on
+the CPU it runs that plain version, with ``ops/dropout.py::keep_mask`` as
+its mask when the rate is above 0; for a CUDA tensor it runs
+``WindowAttentionFn`` (K1 forward, K3 backward) or raises.  There is no
+fallback from one to the other, so both devices draw the same masks from
+the same seed.
 
 The kernel library is compiled at first use from the sources under
-``csrc/`` with ``nvcc`` into ``build/kernels/libvgm_kernels.so`` at the
-root of the checkout, and loaded with ctypes.
+``csrc/`` with ``nvcc`` (one process per source, in parallel) into
+``build/kernels/libvgm_kernels.so`` at the root of the checkout, and loaded
+with ctypes.
 """
 
 from __future__ import annotations
@@ -20,13 +29,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from vit_grid_model_tpu_torch.ops import nn as vnn
-from vit_grid_model_tpu_torch.ops.attention import Attention, attention
+from vit_grid_model_tpu_torch.ops.attention import (Attention, attention,
+                                                    attention_core)
+from vit_grid_model_tpu_torch.ops.dropout import keep_constants, keep_mask
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -35,12 +46,27 @@ LIBRARY = _PKG.parent / "build" / "kernels" / "libvgm_kernels.so"
 MAX_TOKENS = 64
 MAX_DIM = 256
 MAX_DIM_HEAD = 64
+BWD_MAX_DIM = 128
+MAX_SMEM = 232448
 
-# Kernel launches since the count was last set to 0.  Only the launch below
-# adds to it.
-launches = 0
+# Kernel launches since the counts were last set to 0, one count per
+# kernel.  Only the launches below add to them.
+launches = 0          # K1, the forward
+bwd_launches = 0      # K3, the backward
+# K1 and K3 launches with dropout on: each evaluates the keep hash of
+# csrc/dropout_hash.cuh (K1-d) inline for every score
+hash_launches = 0
+mask_launches = 0     # the standalone keep-mask kernel
 
 _lib: Optional[ctypes.CDLL] = None
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC"]
+
+
+def reset_launches() -> None:
+    global launches, bwd_launches, hash_launches, mask_launches
+    launches = bwd_launches = hash_launches = mask_launches = 0
 
 
 def _nvcc() -> str:
@@ -57,23 +83,43 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> float:
     """Compile ``csrc/*.cu`` into the kernel library unless it is newer than
-    every source.  Returns the seconds spent compiling (0.0 when the
+    every source and header: one ``nvcc`` per source, all started
+    together, then one link.  Returns the seconds spent (0.0 when the
     library was current)."""
     sources = sorted(CSRC.glob("*.cu"))
+    deps = sources + sorted(CSRC.glob("*.cuh"))
     if (not force and LIBRARY.exists() and
-            all(LIBRARY.stat().st_mtime >= s.stat().st_mtime
-                for s in sources)):
+            all(LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in deps)):
         return 0.0
     LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    objects = [LIBRARY.parent / f"{s.stem}.{tag}.o" for s in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
+    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(o),
+                               str(s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(sources, objects)]
+    errors = []
+    for proc, src in zip(procs, sources):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = LIBRARY.with_suffix(f".{tag}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objects)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, LIBRARY)
+    finally:
+        for o in objects:
+            if o.exists():
+                o.unlink()
     return time.perf_counter() - t0
 
 
@@ -82,65 +128,75 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
-        fn = lib.vgm_window_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.vgm_window_attention_fwd.argtypes = (
+            [ptr] * 9 + [i32] * 8 + [i32, i32, f32, ptr])
+        lib.vgm_window_attention_bwd.argtypes = (
+            [ptr] * 14 + [i32] * 9 + [i32, i32, f32, ptr])
+        lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
+        for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
+                   lib.vgm_dropout_keep_mask):
+            fn.restype = ctypes.c_int
+        lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 4
+        lib.vgm_window_attention_bwd_slot_floats.restype = ctypes.c_long
+        lib.vgm_window_attention_bwd_smem_bytes.argtypes = [i32] * 3
+        lib.vgm_window_attention_bwd_smem_bytes.restype = ctypes.c_long
         _lib = lib
     return _lib
 
 
-def _film_slot(p: Attention, cond: Optional[Tensor], x: Tensor,
-               windows_per_sample: int):
-    """(gamma, beta, windows per row of gamma, has_film): the per-sample
-    FiLM terms, or the LN affine for unconditioned layers, as f32 after
-    rounding to x's dtype."""
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _stream(t: Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the kernels' inputs, built with differentiable torch ops
+# ---------------------------------------------------------------------------
+
+
+class KernelInputs(NamedTuple):
+    """What K1 and K3 take besides x.  gamma/beta: per-sample FiLM terms,
+    or the LN affine of an unconditioned layer (one row), f32 after
+    rounding to x's dtype, used when ``has_film``; wqkv (heads, dim, 3*dh)
+    and wout (heads, dh, dim) in x's dtype; qg, kg (heads, dh) and the
+    gathered rel-pos bias (heads, n, n) f32."""
+    gamma: Tensor
+    beta: Tensor
+    wqkv: Tensor
+    wout: Tensor
+    qg: Tensor
+    kg: Tensor
+    bias: Tensor
+    windows_per_sample: int
+    has_film: bool
+
+
+def kernel_inputs(p: Attention, x: Tensor, cond: Optional[Tensor],
+                  bias_indices: Tensor,
+                  windows_per_sample: int) -> KernelInputs:
     bw, _, dim = x.shape
+    heads, dh = p.heads, p.dim_head
     if p.film is not None and cond is not None:
         gamma, beta = p.film(cond)
-        wps = windows_per_sample
+        wps, has_film = windows_per_sample, True
     elif p.norm.weight is not None:
         gamma, beta = p.norm.weight[None], p.norm.bias[None]
-        wps = bw
+        wps, has_film = bw, True
     else:
-        empty = torch.empty(0, device=x.device, dtype=torch.float32)
-        return empty, empty, 1, 0
-    if gamma.shape[0] * wps != bw:
+        gamma = beta = torch.empty(0, dim, device=x.device)
+        wps, has_film = bw, False
+    if has_film and gamma.shape[0] * wps != bw:
         raise ValueError(f"{gamma.shape[0]} FiLM rows x {wps} windows "
                          f"per sample != {bw} windows")
 
     def prep(t):
         return t.to(x.dtype).float().contiguous()
 
-    return prep(gamma), prep(beta), wps, 1
-
-
-def window_attention(p: Attention, x: Tensor, cond: Optional[Tensor],
-                     bias_indices: Tensor, *,
-                     windows_per_sample: int) -> Tensor:
-    """The fused forward of ``ops.attention.attention`` on (Bw, n, dim)
-    window tokens."""
-    if x.device.type == "cpu":
-        return attention(p, x, cond, bias_indices,
-                         windows_per_sample=windows_per_sample)
-    if x.device.type != "cuda":
-        raise ValueError(f"window_attention: no kernel for {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"window_attention: dtype {x.dtype} not supported")
-    if x.dim() != 3:
-        raise ValueError(f"window_attention: x must be (Bw, n, dim), "
-                         f"got {tuple(x.shape)}")
-    bw, n, dim = x.shape
-    heads, dh = p.heads, p.dim_head
-    if not (1 <= n <= MAX_TOKENS and dim <= MAX_DIM and dh <= MAX_DIM_HEAD):
-        raise ValueError(f"window_attention: n={n} (<= {MAX_TOKENS}), "
-                         f"dim={dim} (<= {MAX_DIM}), dim_head={dh} "
-                         f"(<= {MAX_DIM_HEAD}) out of the kernel's range")
-    if p.to_qkv.weight.device != x.device:
-        raise ValueError("window_attention: weights and x on other devices")
-
-    x = x.contiguous()
-    gamma, beta, wps, has_film = _film_slot(p, cond, x, windows_per_sample)
     bias = (vnn.embedding(p.rel_pos_bias.weight, bias_indices.to(x.device))
             .permute(2, 0, 1).float().contiguous())               # (h, n, n)
     # per-head weight slices: (heads, dim, 3*dh) and (heads, dh, dim)
@@ -150,18 +206,202 @@ def window_attention(p: Attention, x: Tensor, cond: Optional[Tensor],
             .contiguous())
     qg = p.q_norm.gamma.reshape(heads, dh).float().contiguous()
     kg = p.k_norm.gamma.reshape(heads, dh).float().contiguous()
-    out = torch.empty_like(x)
+    return KernelInputs(prep(gamma), prep(beta), wqkv, wout, qg, kg, bias,
+                        wps, has_film)
 
-    lib = _library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.vgm_window_attention_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
-        qg.data_ptr(), kg.data_ptr(), wout.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), bw, n, dim, heads, dh, wps, has_film,
-        int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    global launches
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+
+def window_attention_fwd(x: Tensor, k: KernelInputs, seed: int,
+                         rate: float) -> Tensor:
+    """K1 on its own inputs: (Bw, n, dim) in x's dtype."""
+    threshold, scale = keep_constants(rate)
+    bw, n, dim = x.shape
+    heads, _, three_dh = k.wqkv.shape
+    out = torch.empty_like(x)
+    _check(_library().vgm_window_attention_fwd(
+        x.data_ptr(), k.gamma.data_ptr(), k.beta.data_ptr(),
+        k.wqkv.data_ptr(), k.qg.data_ptr(), k.kg.data_ptr(),
+        k.wout.data_ptr(), k.bias.data_ptr(), out.data_ptr(), bw, n, dim,
+        heads, three_dh // 3, k.windows_per_sample, int(k.has_film),
+        int(x.dtype == torch.bfloat16), seed, threshold, scale, _stream(x)),
+        "window_attention_fwd")
+    global launches, hash_launches
     launches += 1
+    hash_launches += int(threshold != 0)
     return out
+
+
+def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
+                         rate: float) -> Tuple[Tensor, ...]:
+    """K3: (dx, dgamma_w, dbeta_w, dwqkv, dwout, dqg, dkg, dbias) with
+    per-window dgamma_w/dbeta_w (Bw, dim) and f32 weight grads in the
+    layouts of ``KernelInputs``."""
+    threshold, scale = keep_constants(rate)
+    bw, n, dim = x.shape
+    heads, _, three_dh = k.wqkv.shape
+    dh = three_dh // 3
+    lib = _library()
+    floats = lib.vgm_window_attention_bwd_slot_floats(n, dim, heads, dh)
+    # one CTA (and one f32 gradient slot) per SM; each CTA walks a
+    # contiguous chunk of windows
+    num_slots = min(bw, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    slots = torch.empty(num_slots, floats, device=x.device)
+    grads = torch.empty(floats, device=x.device)
+    dx = torch.empty_like(x)
+    dgw = torch.empty(bw, dim, device=x.device)
+    dbw = torch.empty(bw, dim, device=x.device)
+    _check(lib.vgm_window_attention_bwd(
+        x.data_ptr(), k.gamma.data_ptr(), k.beta.data_ptr(),
+        k.wqkv.data_ptr(), k.qg.data_ptr(), k.kg.data_ptr(),
+        k.wout.data_ptr(), k.bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dgw.data_ptr(), dbw.data_ptr(), grads.data_ptr(), slots.data_ptr(),
+        bw, n, dim, heads, dh, k.windows_per_sample, int(k.has_film),
+        int(x.dtype == torch.bfloat16), num_slots, seed, threshold, scale,
+        _stream(x)), "window_attention_bwd")
+    global bwd_launches, hash_launches
+    bwd_launches += 1
+    hash_launches += int(threshold != 0)
+    sizes = [heads * dim * three_dh, heads * dh * dim, heads * dh,
+             heads * dh, heads * n * n]
+    dwqkv, dwout, dqg, dkg, dbias = grads[:sum(sizes)].split(sizes)
+    return (dx, dgw, dbw, dwqkv.view(heads, dim, three_dh),
+            dwout.view(heads, dh, dim), dqg.view(heads, dh),
+            dkg.view(heads, dh), dbias.view(heads, n, n))
+
+
+def dropout_keep_mask(seed: int, bw: int, heads: int, n: int, rate: float,
+                      device: torch.device) -> Tensor:
+    """The keep mask of ``ops/dropout.py::keep_mask``, written on the card
+    by the kernel that evaluates the attention kernels' hash."""
+    threshold, scale = keep_constants(rate)
+    out = torch.empty(bw, heads, n, n, device=device)
+    _check(_library().vgm_dropout_keep_mask(
+        out.data_ptr(), bw, heads, n, seed, threshold, scale, _stream(out)),
+        "dropout_keep_mask")
+    global mask_launches
+    mask_launches += 1
+    return out
+
+
+class WindowAttentionFn(torch.autograd.Function):
+    """K1 forward and K3 backward.  The forward saves its inputs, not P:
+    the backward recomputes the forward inside K3.  The grads come back in
+    the layouts of the inputs; autograd carries them through the
+    relayouts, the FiLM linear and the bias gather of ``kernel_inputs``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, wout, qg, kg, bias,
+                windows_per_sample, has_film, seed, rate):
+        k = KernelInputs(gamma, beta, wqkv, wout, qg, kg, bias,
+                         windows_per_sample, has_film)
+        ctx.save_for_backward(x, gamma, beta, wqkv, wout, qg, kg, bias)
+        ctx.conf = (windows_per_sample, has_film, seed, rate)
+        return window_attention_fwd(x, k, seed, rate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, wqkv, wout, qg, kg, bias = ctx.saved_tensors
+        wps, has_film, seed, rate = ctx.conf
+        k = KernelInputs(gamma, beta, wqkv, wout, qg, kg, bias, wps,
+                         has_film)
+        dx, dgw, dbw, dwqkv, dwout, dqg, dkg, dbias = window_attention_bwd(
+            x, k, dy.contiguous(), seed, rate)
+        dgamma = dbeta = None
+        if has_film:
+            # each sample's windows share its gamma/beta row
+            dgamma = dgw.reshape(gamma.shape[0], -1, dgw.shape[1]).sum(1)
+            dbeta = dbw.reshape(beta.shape[0], -1, dbw.shape[1]).sum(1)
+        return (dx, dgamma, dbeta, dwqkv.to(wqkv.dtype),
+                dwout.to(wout.dtype), dqg, dkg, dbias, None, None, None,
+                None)
+
+
+def window_attention(p: Attention, x: Tensor, cond: Optional[Tensor],
+                     bias_indices: Tensor, *, windows_per_sample: int,
+                     seed: Optional[int] = None,
+                     dropout_rate: float = 0.0) -> Tensor:
+    """The fused attention of ``ops.attention.attention`` on (Bw, n, dim)
+    window tokens, with attention dropout at ``dropout_rate`` drawn by the
+    counter hash from ``seed`` (an int in [0, 2**31 - 1))."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("window_attention: dropout needs a seed")
+    seed = 0 if seed is None else int(seed)
+    if x.device.type == "cpu":
+        mask = (keep_mask(seed, x.shape[0], p.heads, x.shape[1],
+                          dropout_rate) if dropout_rate > 0.0 else None)
+        return attention(p, x, cond, bias_indices,
+                         windows_per_sample=windows_per_sample,
+                         dropout_mask=mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"window_attention: no kernel for {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"window_attention: dtype {x.dtype} not supported")
+    if x.dim() != 3:
+        raise ValueError(f"window_attention: x must be (Bw, n, dim), "
+                         f"got {tuple(x.shape)}")
+    _, n, dim = x.shape
+    dh = p.dim_head
+    if not (1 <= n <= MAX_TOKENS and dim <= MAX_DIM and dh <= MAX_DIM_HEAD):
+        raise ValueError(f"window_attention: n={n} (<= {MAX_TOKENS}), "
+                         f"dim={dim} (<= {MAX_DIM}), dim_head={dh} "
+                         f"(<= {MAX_DIM_HEAD}) out of the kernel's range")
+    if p.to_qkv.weight.device != x.device:
+        raise ValueError("window_attention: weights and x on other devices")
+    k = kernel_inputs(p, x, cond, bias_indices, windows_per_sample)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in k[:7])):
+        smem = _library().vgm_window_attention_bwd_smem_bytes(
+            dim, dh, int(x.dtype == torch.bfloat16))
+        if dim > BWD_MAX_DIM or smem > MAX_SMEM:
+            raise ValueError(f"window_attention: the backward kernel takes "
+                             f"dim <= {BWD_MAX_DIM} and fitting dim_head; "
+                             f"got dim={dim}, dim_head={dh}")
+    return WindowAttentionFn.apply(x.contiguous(), *k, seed, dropout_rate)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions the card holds the kernels against
+# ---------------------------------------------------------------------------
+
+
+def window_attention_bwd_reference(x: Tensor, k: KernelInputs, dy: Tensor,
+                                   seed: int, rate: float
+                                   ) -> Tuple[Tensor, ...]:
+    """The plain version of K3: its output tuple (dx, dgamma_w, dbeta_w,
+    dwqkv, dwout, dqg, dkg, dbias) by ``torch.autograd.grad`` through the
+    plain forward with the same keep mask.  dgamma_w/dbeta_w are per
+    window (zero without FiLM), the rest in the layouts of ``k``."""
+    bw, _, dim = x.shape
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in
+                  (x, k.wqkv, k.wout, k.qg, k.kg, k.bias)]
+        xl, wqkv, wout, qg, kg, bias = leaves
+        if k.has_film:
+            gamma = (k.gamma.detach().repeat_interleave(k.windows_per_sample,
+                                                        dim=0)
+                     .requires_grad_())
+            beta = (k.beta.detach().repeat_interleave(k.windows_per_sample,
+                                                      dim=0)
+                    .requires_grad_())
+            leaves[1:1] = [gamma, beta]
+        else:
+            gamma = beta = k.gamma
+        mask = (keep_mask(seed, bw, k.wqkv.shape[0], x.shape[1], rate,
+                          device=x.device) if rate > 0.0 else None)
+        out = attention_core(xl, gamma, beta, wqkv, wout, qg, kg, bias,
+                             windows_per_sample=1, has_film=k.has_film,
+                             dropout_mask=mask)
+        grads = torch.autograd.grad(out, leaves, dy)
+    if k.has_film:
+        dx, dgw, dbw, *rest = grads
+    else:
+        dx, *rest = grads
+        dgw = dbw = torch.zeros(bw, dim, device=x.device)
+    dwqkv, dwout, dqg, dkg, dbias = rest
+    return (dx, dgw.float(), dbw.float(), dwqkv.float(), dwout.float(),
+            dqg, dkg, dbias)

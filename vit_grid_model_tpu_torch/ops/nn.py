@@ -61,6 +61,31 @@ def batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
             * bn.weight.view(shape) + bn.bias.view(shape))
 
 
+def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d, *,
+                     momentum: float = 0.1) -> Tuple[Tensor, Tensor, Tensor]:
+    """Training-mode BatchNorm over NCHW channels, the counterpart of
+    ``vit_grid_model_tpu/ops/nn.py::batch_norm(training=True)``.
+
+    Normalizes with the biased batch variance and returns ``(y, mean,
+    var)``: the updated running statistics, with momentum 0.1 and the
+    unbiased variance n/(n-1), detached and in x's dtype.  They are not
+    written here: the trainer writes them into the module's f32 buffers
+    after the optimizer step, as ``trainer.py::_merge_bn`` does."""
+    shape = (1, -1, 1, 1)
+    mean = x.mean(dim=(0, 2, 3))
+    var = (x - mean.view(shape)).square().mean(dim=(0, 2, 3))
+    count = x.numel() // x.shape[1]
+    y = ((x - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
+         * bn.weight.view(shape) + bn.bias.view(shape))
+    with torch.no_grad():
+        unbiased = var * (count / max(count - 1, 1))
+        new_mean = ((1 - momentum) * bn.running_mean.to(x.dtype)
+                    + momentum * mean)
+        new_var = ((1 - momentum) * bn.running_var.to(x.dtype)
+                   + momentum * unbiased)
+    return y, new_mean, new_var
+
+
 def chan_layer_norm(x: Tensor, g: Tensor, b: Tensor, *,
                     eps: float = 1e-5) -> Tensor:
     """LayerNorm over the channel axis of NCHW with biased variance and
