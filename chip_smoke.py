@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's hand-written kernels
-from ``vit_grid_model_tpu_torch/csrc``, holds each against its plain
-PyTorch version on the card, runs the shipped 12-hour MetNet3 (random
-weights from a numpy seed) on the GPU and on the CPU, drives the ``--fast``
-evaluation CLI over a synthetic data tree at batch 25, and drives the
-``--fast`` training CLI for 12 steps at batch 4.  Phases:
+from ``vit_grid_model_tpu_torch/csrc`` and its C++ data loader, holds each
+kernel against its plain PyTorch version on the card, runs the shipped
+12-hour MetNet3 (random weights from a numpy seed) on the GPU and on the
+CPU, drives the ``--fast`` evaluation CLI over a synthetic data tree at
+batch 25, drives the ``--fast`` training CLI for 12 steps at batch 4, and
+drives the R15 repro (the fused MBConv against cuDNN's passes).  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
-1. build: compile the kernel library;
+1. build: compile the kernel library and the data loader;
 2. forward kernel vs plain: flagship, 3-head and diverging-score cases in
    f32 and bf16; kernel and plain times at the flagship shape;
 2b. dropout keep mask: the CUDA hash bit-equal to its plain version;
@@ -23,11 +24,17 @@ evaluation CLI over a synthetic data tree at batch 25, and drives the
 5. whole-model gradients: one training loss and backward in f32 on the GPU
    (forward and backward kernels) against the CPU (plain version) in f64;
 6. training main path: the training CLI; every window attention and its
-   gradient must have gone through the kernels.
+   gradient must have gone through the kernels;
+7. R15: the fused MBConv kernel vs its plain version (bf16 at BN 384 with
+   1 and 4 samples per block and at BN 300, f32 at BN 8, a small odd
+   shape in both types, the 12-hour model's own MBConv), bit-identical on
+   a second launch; then the repro's entry point, which must go through
+   the kernel, with kernel, plain and stock-folded times; and the stock
+   MBConv's share of the B=25 ``--fast`` forward's kernel time.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
-JAX.
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,13 +86,6 @@ def phase(n, title):
     print(f"\n== phase {n}: {title}", flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-
-
 def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed):
     """A window-attention layer and its inputs, all from a numpy seed."""
     import torch
@@ -112,21 +112,6 @@ def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed):
     return m.eval(), x, cond
 
 
-def cuda_ms(fn, iters=10, warmup=2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def kernel_vs_plain(dev):
     """Phase 2.  Returns the flagship bf16 case's error and both times."""
     import torch
@@ -134,6 +119,7 @@ def kernel_vs_plain(dev):
     from vit_grid_model_tpu_torch.ops import attention as plain
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
     from vit_grid_model_tpu_torch.ops.window import relative_position_indices
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
     bias_idx = relative_position_indices(7, 4, device=dev)
     report = {}
@@ -188,8 +174,8 @@ def whole_model(dev):
     """Phase 3: the shipped 12-hour model, one sample, f32, GPU vs CPU."""
     import torch
 
-    from vit_grid_model_tpu.core.config import shipped_12hr_model_config
-    from vit_grid_model_tpu.data.synthetic import DEFAULT_FEAT_INFOS
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
     from vit_grid_model_tpu_torch.core.weights import seeded_model
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
 
@@ -233,7 +219,7 @@ def main_path(card: str):
 
     import torch
 
-    from vit_grid_model_tpu.data import readers, synthetic
+    from vit_grid_model_tpu_torch.data import readers, synthetic
     from vit_grid_model_tpu_torch.cli import evaluation_vit as cli
     from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
@@ -343,6 +329,7 @@ def dropout_mask_check(dev):
 
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
     from vit_grid_model_tpu_torch.ops.dropout import keep_mask
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
     report = None
     for heads in (32, 3):
@@ -425,6 +412,7 @@ def backward_vs_plain(dev):
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
     report = {}
     for name, heads, dh, dim, conditioned, bw, offset in TRAIN_CASES:
@@ -482,8 +470,8 @@ def whole_model_grads(dev):
 
     import torch
 
-    from vit_grid_model_tpu.core.config import shipped_12hr_model_config
-    from vit_grid_model_tpu.data.synthetic import DEFAULT_FEAT_INFOS
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
     from vit_grid_model_tpu_torch.core.weights import seeded_model
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
     from vit_grid_model_tpu_torch.train.losses import focal_r_loss
@@ -642,6 +630,158 @@ def train_path(card: str):
     return counts
 
 
+# R15 comparison cases: (name, samples, H, W, C, dtype, samples per block);
+# C = 128 is the flagship block (hidden 512, SE 128), C = 32 the small
+# instantiation (hidden 128, SE 32); 9 x 7 and 5 samples are odd in every
+# tiled axis
+MBCONV_CASES = [
+    ("repro BN=384", 384, 42, 35, 128, "bfloat16", 1),
+    ("repro BN=384", 384, 42, 35, 128, "bfloat16", 4),
+    ("flagship eval BN=300", 300, 42, 35, 128, "bfloat16", 1),
+    ("f32 BN=8", 8, 42, 35, 128, "float32", 1),
+    ("f32 BN=8", 8, 42, 35, 128, "float32", 4),
+    ("small odd 9x7", 5, 9, 7, 32, "float32", 1),
+    ("small odd 9x7", 5, 9, 7, 32, "float32", 4),
+    ("small odd 9x7", 5, 9, 7, 32, "bfloat16", 1),
+    ("small odd 9x7", 5, 9, 7, 32, "bfloat16", 4),
+]
+
+
+def mbconv_errors(x, ops, spb):
+    """The fused MBConv kernel against its plain version: (max|kernel -
+    plain|, max|plain|).  Raises on a value that is not finite and on a
+    second launch that is not bit-identical."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.cuda.mbconv import fused_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import fused_mbconv_reference
+
+    with torch.inference_mode():
+        ours = fused_mbconv(x, ops, samples_per_block=spb)
+        again = fused_mbconv(x, ops, samples_per_block=spb)
+        ref = fused_mbconv_reference(x, ops)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(ours.float()).all()):
+        raise AssertionError("fused MBConv: the kernel's value is not finite")
+    if not torch.equal(ours, again):
+        raise AssertionError("fused MBConv: two launches differ")
+    ours, ref = ours.float(), ref.float()
+    return (ours - ref).abs().max().item(), ref.abs().max().item()
+
+
+def mbconv_vs_plain(dev):
+    """Phase 7a: the R15 kernel against its plain version on the card, on
+    the repro harness's block and on the 12-hour model's own layer-0 MBConv
+    (which has no residual: the fused form computes block(x) + x).
+    Returns max|kernel - plain| at BN 384, bf16, one sample per block."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    report = None
+    model_block = seeded_model(shipped_12hr_model_config(22.5, 15.5),
+                               SEED).vit.layers[0][0]
+    cases = [c + ("repro",) for c in MBCONV_CASES] + [
+        ("12hr model layer 0", 8, 42, 35, 128, "bfloat16", 1, "model")]
+    for name, n, h, w, c, dtype_name, spb, source in cases:
+        dtype = getattr(torch, dtype_name)
+        block = model_block if source == "model" else repro.block(dim=c,
+                                                                  seed=SEED)
+        ops = tuple(t.to(dev) for t in mbconv_kernel_operands(block))
+        x = repro.inputs(n, h, w, c, SEED + 1, dtype, dev)
+        err, scale = mbconv_errors(x, ops, spb)
+        tol = TOLERANCE[dtype_name]
+        print(f"{name:22s} {dtype_name:8s} {n:3d}x{h}x{w}x{c} spb={spb}: "
+              f"max|d|={err:.3e} max|plain|={scale:.3e} rel={err / scale:.3e}"
+              f" (tol {tol:g}); second launch bit-identical", flush=True)
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} {dtype_name} spb={spb}: the fused "
+                                 f"MBConv differs from plain by {err}")
+        if (n, dtype_name, spb, source) == (384, "bfloat16", 1, "repro"):
+            report = err
+        del x, ops
+        torch.cuda.empty_cache()
+    return report
+
+
+def mbconv_repro_path():
+    """Phase 7b: the R15 repro's entry point, every count set to 0 just
+    before it.  Returns (kernel launches, its results)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    cuda_mbconv.reset_launches()
+    results = repro.main()
+    torch.cuda.synchronize()
+    launches = cuda_mbconv.launches
+    print(f"fused_mbconv launched {launches} times by the repro", flush=True)
+    if launches == 0:
+        raise AssertionError("the repro did not run the fused MBConv kernel")
+    return launches, results
+
+
+def mbconv_share(dev, card):
+    """Phase 7c: the stock MBConv's share of the B=25 --fast forward's
+    kernel time: the 12-hour model in bf16 with the fused stem and NHWC
+    input, and its MBConv alone on the input it sees there."""
+    import dataclasses
+
+    import torch
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.repros import common
+
+    cfg = dataclasses.replace(shipped_12hr_model_config(22.5, 15.5),
+                              compute_dtype="bfloat16", fuse_lead_stem=True,
+                              nhwc_input=True)
+    model = seeded_model(cfg, SEED).to(dev, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy((rng.random((FLAGSHIP_BATCH, 84, 70, 600)) * 50)
+                         .astype(np.float32)).to(dev)
+    ts = torch.from_numpy(np.stack(
+        [np.full((FLAGSHIP_BATCH, 25), 2023.0), np.ones((FLAGSHIP_BATCH, 25)),
+         np.full((FLAGSHIP_BATCH, 25), 15.0),
+         np.tile(np.arange(25) % 24, (FLAGSHIP_BATCH, 1))],
+        axis=-1).astype(np.float32)).to(dev)
+    block = model.vit.layers[0][0]
+    seen = []
+    hook = block.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0]))
+    with torch.inference_mode():
+        model(x, ts)
+        hook.remove()
+        whole = sum(common.kernel_ms(lambda: model(x, ts)).values())
+        part = sum(common.kernel_ms(lambda: block(seen[0])).values())
+    if not part > 0:
+        raise AssertionError("torch.profiler recorded no kernel time")
+    print(f"stock MBConv ({tuple(seen[0].shape)}, bf16): {part:.3f} ms of "
+          f"the B={FLAGSHIP_BATCH} --fast forward's {whole:.3f} ms of kernel "
+          f"time = {part / whole:.1%} (torch.profiler); card: {card}",
+          flush=True)
+
+
+def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
+    """(least ms, what bounds it) of the window attention at this shape: its
+    products' operations (qkv, scores, P.v, out-projection; the backward
+    recomputes the forward and runs eight more) at the bf16 tensor-core
+    peak, against x and y (and dy, dx) moved once."""
+    fwd = 2 * n * dim * 3 * heads * dh + 4 * heads * n * n * dh \
+        + 2 * n * heads * dh * dim
+    bwd = 2 * 2 * n * dim * heads * dh + 4 * 2 * heads * n * n * dh \
+        + 2 * 2 * n * dim * 3 * heads * dh
+    ops = bw * (fwd + (bwd if backward else 0))
+    moved = bw * n * dim * item * (4 if backward else 2)
+    t_ops, t_bytes = ops / 989e12, moved / 3.35e12
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops
+                                      else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -649,7 +789,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     phase(0, "device")
-    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.data import native
+    from vit_grid_model_tpu_torch.ops.cuda import library
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+    from vit_grid_model_tpu_torch.repros.common import card_line
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -660,8 +803,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase(1, "build")
-    print(f"built {cuda_attn.LIBRARY} in {cuda_attn.build(force=True):.1f} s",
+    print(f"built {library.LIBRARY} in {library.build(force=True):.1f} s",
           flush=True)
+    native.build()
+    if not native.available():
+        raise AssertionError(f"{native.LIBRARY} does not load")
+    print(f"built {native.LIBRARY}", flush=True)
 
     phase(2, "forward kernel vs plain on the card")
     report = kernel_vs_plain(dev)
@@ -687,26 +834,51 @@ def main() -> int:
     phase(6, "main path: --fast training")
     train_counts = train_path(card)
 
+    phase("7a", "R15 fused MBConv kernel vs plain on the card")
+    mb_err = mbconv_vs_plain(dev)
+
+    phase("7b", "R15 path: the fused MBConv repro")
+    mb_launches, mb_results = mbconv_repro_path()
+
+    phase("7c", "the stock MBConv's share of the --fast forward")
+    mbconv_share(dev, card)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
     m_err, m_ms, mp_ms = mask_report
+    mb = mb_results[384]
     src = "vit_grid_model_tpu_torch/csrc/"
     tpu = "vit_grid_model_tpu/ops/pallas/attention.py"
+    fwd_bound = attention_bound_ms(
+        FLAGSHIP_BATCH * 12 * WINDOWS_PER_SAMPLE, 53, 128, 32, 32, 2)
+    bwd_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2,
+                                   backward=True)
+    # the standalone mask kernel writes an f32 mask and does no products
+    mask_bound = (1e3 * TRAIN_WINDOWS * 32 * 53 * 53 * 4 / 3.35e12, "bytes")
+    mb_bound = repro.bound_ms(384, repro.H, repro.W, repro.DIM,
+                              repro.DIM * repro.EXPANSION, repro.DIM,
+                              torch.bfloat16)
     print(f"evaluation path: window_attention_fwd launched {eval_launches} "
           "times", flush=True)
+    kernels = [
+        ("window_attention_fwd", "window_attention_fwd.cu", f"{tpu}:139",
+         train_counts["window_attention_fwd"], err, k_ms, p_ms, fwd_bound),
+        ("window_attention_bwd", "window_attention_bwd.cu", f"{tpu}:534",
+         train_counts["window_attention_bwd"], b_err, b_ms, r_ms, bwd_bound),
+        ("dropout_keep_mask", "dropout_hash.cuh", f"{tpu}:68",
+         train_counts["dropout_keep_mask"], m_err, m_ms, mp_ms, mask_bound),
+        ("fused_mbconv", "fused_mbconv.cu",
+         "benchmarks/mosaic_repros/repro_fused_mbconv.py:101", mb_launches,
+         mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound)]
+    # no single PyTorch call computes any of these functions: library_ms
+    # stays null
     print(json.dumps({"kernels": [
-        {"name": "window_attention_fwd", "route": "cuda",
-         "source": src + "window_attention_fwd.cu", "replaces": f"{tpu}:139",
-         "launches": train_counts["window_attention_fwd"],
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms},
-        {"name": "window_attention_bwd", "route": "cuda",
-         "source": src + "window_attention_bwd.cu", "replaces": f"{tpu}:534",
-         "launches": train_counts["window_attention_bwd"],
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": r_ms},
-        {"name": "dropout_keep_mask", "route": "cuda",
-         "source": src + "dropout_hash.cuh", "replaces": f"{tpu}:68",
-         "launches": train_counts["dropout_keep_mask"],
-         "max_abs_err": m_err, "ms": m_ms, "plain_ms": mp_ms}]}))
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": replaces, "launches": launches, "max_abs_err": e,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+         "bound_by": bound[1], "library_ms": None}
+        for name, source, replaces, launches, e, ms, plain_ms, bound
+        in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

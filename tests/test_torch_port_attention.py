@@ -20,6 +20,7 @@ from vit_grid_model_tpu.ops import attention as jattn
 from vit_grid_model_tpu.ops.window import relative_position_indices
 from vit_grid_model_tpu_torch.ops import attention as tattn
 from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+from vit_grid_model_tpu_torch.ops.cuda import library as cuda_library
 
 REL = 2e-5
 WPS = 3
@@ -130,9 +131,9 @@ def test_wrapper_runs_plain_on_cpu_without_nvcc(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the kernel library was touched on the CPU")
 
-    monkeypatch.setattr(cuda_attn, "build", refuse)
-    monkeypatch.setattr(cuda_attn, "_library", refuse)
-    monkeypatch.setattr(cuda_attn, "_nvcc", refuse)
+    monkeypatch.setattr(cuda_library, "build", refuse)
+    monkeypatch.setattr(cuda_library, "load", refuse)
+    monkeypatch.setattr(cuda_library, "nvcc", refuse)
     monkeypatch.setattr(cuda_attn, "launches", 0)
     p, x, cond = _case(3, 8, 24, True)
     m = _port(p, 3, 8, 24, True)

@@ -1,16 +1,17 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 GPU: the window-attention forward (with and without dropout), its backward,
-and the dropout keep mask.  Skips without a CUDA device.  This file imports
-no JAX, so it runs on a machine without it:
+the dropout keep mask and the fused MBConv.  Skips without a CUDA device.
+This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_cuda.py
 
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
-f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``).  The keep mask is
-bit-equal.  Layers and inputs come from ``chip_smoke.attention_case``
-(numpy seed 0)."""
+f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
+the forward.  The keep mask is bit-equal.  Layers and inputs come from
+``chip_smoke.attention_case`` and ``repros/fused_mbconv.py`` (numpy seeds).
+"""
 
 import pytest
 import torch
@@ -184,3 +185,41 @@ def test_backward_rejects_width_out_of_range():
             m, xt, torch.from_numpy(cond).cuda(),
             relative_position_indices(7, 4, device=torch.device("cuda")),
             windows_per_sample=30)
+
+
+# the fused MBConv (R15): (samples, H, W, C); C = 128 is the flagship block,
+# C = 32 the small instantiation; 9 x 7 and 5 samples are odd in every
+# tiled axis
+MBCONV_CASES = [(3, 42, 35, 128), (5, 9, 7, 32), (2, 3, 5, 32)]
+
+
+@pytest.mark.parametrize("spb", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c", MBCONV_CASES)
+def test_fused_mbconv_matches_plain(n, h, w, c, dtype, spb):
+    """The kernel against ``fused_mbconv_reference`` on the repro block's
+    operands; a second launch is bit-identical."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    dev = torch.device("cuda")
+    ops = tuple(t.to(dev) for t in mbconv_kernel_operands(repro.block(c)))
+    x = repro.inputs(n, h, w, c, 1, dtype, dev)
+    before = cuda_mbconv.launches
+    err, scale = chip_smoke.mbconv_errors(x, ops, spb)
+    assert cuda_mbconv.launches == before + 2
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_fused_mbconv_rejects_other_widths():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    dev = torch.device("cuda")
+    ops = tuple(t.to(dev) for t in mbconv_kernel_operands(repro.block(16)))
+    with pytest.raises(ValueError):
+        cuda_mbconv.fused_mbconv(torch.zeros(1, 4, 4, 16, device=dev), ops)

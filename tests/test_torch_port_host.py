@@ -1,0 +1,255 @@
+"""The port's own host code against the JAX package's originals: configs,
+the eval CLI's parser, the state-dict exporter, the synthetic tree, the
+datasets and ``BatchLoader``, the assembly, the native loader and the
+metric engine with its log writer.  Exact (bit- or byte-equal) unless
+stated; the native loader is held to the numpy path at rtol 1e-6, as
+``tests/test_native_loader.py`` holds the JAX package's."""
+
+import dataclasses
+import io
+import os
+from datetime import datetime
+
+import numpy as np
+import pytest
+
+import jax
+
+from tests import conftest as C  # noqa: F401
+from vit_grid_model_tpu.cli import evaluation_vit as jax_cli
+from vit_grid_model_tpu.core import config as jax_config
+from vit_grid_model_tpu.core.torch_export import (
+    export_metnet3_state_dict as jax_export)
+from vit_grid_model_tpu.data import assembly as jax_assembly
+from vit_grid_model_tpu.data import datasets as jax_datasets
+from vit_grid_model_tpu.data import pipeline as jax_pipeline
+from vit_grid_model_tpu.data import readers as jax_readers
+from vit_grid_model_tpu.data import synthetic as jax_synthetic
+from vit_grid_model_tpu.evaluation import logwriter as jax_logwriter
+from vit_grid_model_tpu.evaluation import metrics as jax_metrics
+from vit_grid_model_tpu.models.metnet3 import metnet3_init
+from vit_grid_model_tpu_torch.cli import evaluation_vit as port_cli
+from vit_grid_model_tpu_torch.core import config as port_config
+from vit_grid_model_tpu_torch.core.export import (
+    export_metnet3_state_dict as port_export)
+from vit_grid_model_tpu_torch.data import assembly as port_assembly
+from vit_grid_model_tpu_torch.data import datasets as port_datasets
+from vit_grid_model_tpu_torch.data import native as port_native
+from vit_grid_model_tpu_torch.data import pipeline as port_pipeline
+from vit_grid_model_tpu_torch.data import readers as port_readers
+from vit_grid_model_tpu_torch.data import synthetic as port_synthetic
+from vit_grid_model_tpu_torch.data import timeutil as port_timeutil
+from vit_grid_model_tpu_torch.evaluation import driver as port_driver
+from vit_grid_model_tpu_torch.evaluation import logwriter as port_logwriter
+from vit_grid_model_tpu_torch.evaluation import metrics as port_metrics
+
+START, END = datetime(2023, 2, 1, 0), datetime(2023, 2, 1, 9)
+INPUT_DIM, OUTPUT_DIM, PREV_LEN = 2, 2, 3
+
+
+def _fields(cls):
+    """(name, default, default factory) per field; a default that is
+    itself a config compares by its fields."""
+    def value(v):
+        return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+    return [(f.name, value(f.default), f.default_factory) for f in
+            dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", ["GridConfig", "MetNet3Config",
+                                  "DataConfig", "TrainConfig"])
+def test_config_fields_and_defaults_match(name):
+    ours, ref = getattr(port_config, name), getattr(jax_config, name)
+    assert _fields(ours) == _fields(ref)
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(ref())
+
+
+def test_config_validation_and_shipped_config_match():
+    for cfg in (port_config, jax_config):
+        with pytest.raises(ValueError):
+            cfg.MetNet3Config(use_pallas_attention_bwd=True)
+    assert dataclasses.asdict(
+        port_config.shipped_12hr_model_config(22.5, 15.5)) == \
+        dataclasses.asdict(jax_config.shipped_12hr_model_config(22.5, 15.5))
+
+
+def test_eval_parser_options_and_defaults_match():
+    def options(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.type,
+                         a.choices, a.nargs, a.const)
+                for a in parser._actions}
+
+    assert options(port_cli.build_parser()) == options(
+        jax_cli.build_parser())
+
+
+@pytest.mark.parametrize("depth", [(1,), (2,)])
+def test_exporter_bit_equal(depth):
+    cfg = jax_config.MetNet3Config(
+        window_size=3, n_variables=4, n_start_channels=8, end_lead_time=2,
+        input_height=14, input_width=14, n_heads=2, dim_head=4,
+        vit_block_depth=depth)
+    params = metnet3_init(jax.random.PRNGKey(0), cfg)
+    ref = jax_export(params, cfg)
+    ours = port_export(params, port_config.MetNet3Config(
+        **dataclasses.asdict(cfg)))
+    assert list(ours) == list(ref)
+    for k, v in ref.items():
+        assert ours[k].dtype == v.dtype and ours[k].shape == v.shape, k
+        assert np.array_equal(ours[k], v), k
+
+
+def _generate(pkg, root):
+    return pkg.generate_tree(str(root), START, END, prev_len=PREV_LEN,
+                             output_dim=OUTPUT_DIM)
+
+
+def _files(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def trees(tmp_path_factory):
+    """The same window written by both packages' generators."""
+    root = tmp_path_factory.mktemp("host")
+    paths = {"jax": _generate(jax_synthetic, root / "jax"),
+             "port": _generate(port_synthetic, root / "port")}
+    jax_readers.clear_caches()
+    port_readers.clear_caches()
+    return root, paths
+
+
+def test_synthetic_tree_byte_identical(trees):
+    root, _ = trees
+    ref, ours = _files(root / "jax"), _files(root / "port")
+    assert sorted(ours) == sorted(ref) and len(ref) > 50
+    for k in ref:
+        assert ours[k] == ref[k], k
+
+
+def _dataset(module, cls, paths, use_native=None):
+    data_path = paths["data_path"]
+    times = port_timeutil.eval_time_list(START, END, PREV_LEN, OUTPUT_DIM)
+    stations = port_driver.load_stations(data_path)
+    feats, masks = port_driver.load_ground_obs(data_path, times,
+                                               stations.total, 12)
+    ds = getattr(module, cls)(
+        times, feats, masks, input_dim=INPUT_DIM, output_dim=OUTPUT_DIM,
+        prev_len=PREV_LEN, korea_stn_num=stations.korea_stn_num,
+        china_stn_num=stations.china_stn_num, cmaq_size=(82, 67),
+        sim_data_path=paths["sim_data_path"],
+        reanalysis_data_path=paths["analysis_data_path"],
+        feat_infos=port_driver.load_feat_infos(data_path))
+    if use_native is not None:
+        ds.use_native = use_native
+    return ds
+
+
+def _assert_batches_equal(ours, ref):
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("cls", ["AirSimulationReanalysisDatasetOnly",
+                                 "AirSimulationReanalysisDatasetV3"])
+@pytest.mark.parametrize("shuffle", [False, True, "batches", "buffer"])
+def test_batch_loader_yields_the_same_batches(trees, cls, shuffle):
+    """Both loaders over their own package's dataset, same seed, two
+    epochs: the same batches in the same order."""
+    _, paths = trees
+
+    def run(pipeline, datasets):
+        loader = pipeline.BatchLoader(
+            _dataset(datasets, cls, paths["port"]), batch_size=3,
+            shuffle=shuffle, seed=5, num_workers=2, shuffle_buffer=2)
+        return [tuple(np.array(f) for f in b)
+                for _ in range(2) for b in loader]
+
+    _assert_batches_equal(run(port_pipeline, port_datasets),
+                          run(jax_pipeline, jax_datasets))
+
+
+def test_assembly_outputs_equal(trees):
+    _, paths = trees
+    times = port_timeutil.eval_time_list(START, END, PREV_LEN, OUTPUT_DIM)
+    kw = dict(input_dim=INPUT_DIM, output_dim=OUTPUT_DIM, prev_len=PREV_LEN,
+              sim_data_path=paths["port"]["sim_data_path"],
+              feat_infos=port_synthetic.DEFAULT_FEAT_INFOS, n_species=6,
+              grid_shape=(82, 67))
+    for ours, ref in zip(
+            port_assembly.assemble_simulation(times, 4, 2, **kw),
+            jax_assembly.assemble_simulation(times, 4, 2, **kw)):
+        np.testing.assert_array_equal(ours, ref)
+    rkw = dict(output_dim=OUTPUT_DIM, grid_shape=(82, 67),
+               reanalysis_data_path=paths["port"]["analysis_data_path"])
+    for ours, ref in zip(port_assembly.read_reanalysis_window(times, 4, **rkw),
+                         jax_assembly.read_reanalysis_window(times, 4, **rkw)):
+        np.testing.assert_array_equal(ours, ref)
+    stack = np.random.default_rng(0).random((2, 9, 8, 3 * 28)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        port_assembly.sim_stack_to_model_input(stack, 3),
+        jax_assembly.sim_stack_to_model_input(stack, 3))
+    np.testing.assert_array_equal(
+        port_assembly.sim_stack_to_nhwc_input(stack, 3, 7),
+        jax_assembly.sim_stack_to_nhwc_input(stack, 3, 7))
+
+
+def test_native_loader_matches_numpy(trees):
+    """The port's C++ loader, built from its own copy of the source into
+    build/, against the numpy path: samples, collated batches and the
+    repacks."""
+    assert port_native.available()
+    assert port_native.LIBRARY.parent.name == "native"
+    _, paths = trees
+    cls = "AirSimulationReanalysisDatasetV3"
+    fast = _dataset(port_datasets, cls, paths["port"], use_native=True)
+    slow = _dataset(port_datasets, cls, paths["port"], use_native=False)
+    for i in (0, len(fast) - 1):
+        for a, b in zip(fast[i], slow[i]):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+    batch = fast.get_batch_collated([1, 2, 3])
+    ref = slow.collate([slow[i] for i in (1, 2, 3)])
+    for a, b in zip(batch, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+    stack = np.random.default_rng(1).random((2, 9, 8, 3 * 28)).astype(
+        np.float32)
+    out = np.empty((2, 3, 24, 9, 8), np.float32)
+    assert port_native.repack_model_input_native(stack, 3, out)
+    np.testing.assert_array_equal(
+        out, stack.reshape(2, 9, 8, 3, 28).transpose(0, 3, 4, 1, 2)[:, :, :24])
+
+
+def test_metrics_and_log_text_equal():
+    """Two updates with NaN-class truth cells and a ragged batch: the same
+    summary and the same log text."""
+    rng = np.random.default_rng(2)
+    L, cells = 3, 40
+    engines = [port_metrics.EvaluationMetrics(L),
+               jax_metrics.EvaluationMetrics(L)]
+    for b in (4, 2):
+        truth = (rng.random((b, L, cells)) * 90).astype(np.float32)
+        truth_cls = jax_assembly.assign_class(truth).astype(np.int32)
+        truth_cls[0, 0, :3] = -1
+        preds = {k: (rng.random((b, L, cells)) * 90).astype(np.float32)
+                 for k in ("model", "persist", "sim_21h", "sim_avg")}
+        for m in engines:
+            m.update(truth=truth, truth_cls=truth_cls, **preds)
+    texts = []
+    for m, writer in zip(engines, (port_logwriter, jax_logwriter)):
+        f = io.StringIO()
+        writer.write_log(f, m, "args")
+        texts.append(f.getvalue())
+    assert texts[0] == texts[1] and "MultiAir CSI:" in texts[0]
+    assert engines[0].summary() == engines[1].summary()

@@ -1,6 +1,8 @@
-"""The PyTorch port runs where JAX is absent: importing every module of
+"""The PyTorch port stands alone: importing every module of
 ``vit_grid_model_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter
-loads no ``jax`` and no Triton, and builds no kernel."""
+loads no ``jax``, no Triton, nothing of the JAX package
+(``vit_grid_model_tpu``) and nothing of ``benchmarks``, and builds no
+kernel."""
 
 import os
 import subprocess
@@ -12,15 +14,17 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 21, names
+assert len(names) >= 41, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-from vit_grid_model_tpu_torch.ops.cuda import attention
-bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]
+from vit_grid_model_tpu_torch.ops.cuda import attention, library, mbconv
+bad = [m for m in sys.modules
+       if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vit_grid_model_tpu',
+                              'benchmarks')]
 assert not bad, bad
-assert attention._lib is None
-assert attention.launches == attention.bwd_launches == 0
+assert library._lib is None
+assert attention.launches == attention.bwd_launches == mbconv.launches == 0
 print(len(names))
 """
 

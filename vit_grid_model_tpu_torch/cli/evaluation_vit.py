@@ -11,6 +11,7 @@ matmuls and convolutions; any other value allows it.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 from datetime import datetime
@@ -18,12 +19,78 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from vit_grid_model_tpu.cli.evaluation_vit import build_parser
-from vit_grid_model_tpu.core.config import DataConfig, GridConfig, MetNet3Config
-from vit_grid_model_tpu.evaluation import parity
+from vit_grid_model_tpu_torch.core.config import (DataConfig, GridConfig,
+                                                  MetNet3Config)
 from vit_grid_model_tpu_torch.core.weights import (load_reference_checkpoint,
                                                    seeded_model)
-from vit_grid_model_tpu_torch.evaluation import driver
+from vit_grid_model_tpu_torch.data import synthetic
+from vit_grid_model_tpu_torch.evaluation import driver, parity
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The options of ``vit_grid_model_tpu/cli/evaluation_vit.py`` with the
+    same defaults (``tests/test_torch_port_host.py`` holds them equal)."""
+    p = argparse.ArgumentParser(description="evaluation MultiAir")
+    # --- reference-compatible surface (defaults identical) ---
+    p.add_argument("--seed", type=int, default=0, help="random seed")
+    p.add_argument("--batch_size", type=int, default=24,
+                   help="number of batch size")
+    p.add_argument("--data_path", type=str,
+                   default="../preprocessed_data_from_2016",
+                   help="path of data")
+    p.add_argument("--sim_data_path", type=str,
+                   default="../../short_term/nier_preprocessed/CMAQ",
+                   help="path of simulation data")
+    p.add_argument("--analysis_data_path", type=str,
+                   default="../analysis/CMAQ", help="path of analysis data")
+    p.add_argument("--model_name", type=str, default="",
+                   help="name of model to evaluate")
+    p.add_argument("--gpus", type=str, default="0",
+                   help="CUDA device index, or 'cpu'")
+    p.add_argument("--hidden_dim", type=int, default=128,
+                   help="hidden dimension for LSTM")
+    p.add_argument("--output_dim", type=int, default=6,
+                   help="number of predictions")
+    p.add_argument("--input_dim", type=int, default=7,
+                   help="input window size")
+    p.add_argument("--prev_len", type=int, default=7,
+                   help="previous length for statistics of data")
+    p.add_argument("--feat_dim", type=int, default=12,
+                   help="feature dimension")
+    # --- additions of the rebuild ---
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="torch .pkt; default check_points/{model_name}.pkt "
+                        "like the reference")
+    p.add_argument("--test_start", type=str, default="2023-01-01T00")
+    p.add_argument("--test_end", type=str, default="2023-03-31T23")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate a synthetic data tree (no external data)")
+    p.add_argument("--synthetic_root", type=str, default="/tmp/vit_synth")
+    p.add_argument("--precision", type=str, default="highest",
+                   choices=["default", "high", "highest"],
+                   help="highest turns TF32 off (f32 parity)")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--fast", action="store_true",
+                   help="throughput mode: bf16 + fused stem + host-prepared "
+                        "NHWC input staging (not for checkpoint-parity "
+                        "scoring)")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--max_batches", type=int, default=None)
+    p.add_argument("--log_dir", type=str, default="logs")
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="only 1 is ported")
+    p.add_argument("--collect_valid_times", action="store_true",
+                   help="not ported")
+    p.add_argument("--parity_report", type=str, default=None, metavar="BASE",
+                   help="after evaluating, diff the summary against a "
+                        "baseline table and pass/fail the <=1e-3 model-RMSE "
+                        "gate. BASE is a baseline JSON path, or the literal "
+                        "'reference' for the shipped 12hr golden-log table. "
+                        "Exits 1 on gate failure.")
+    p.add_argument("--parity_save", type=str, default=None, metavar="PATH",
+                   help="write this run's summary as a parity-baseline JSON")
+    return p
 
 
 def select_device(gpus: str) -> torch.device:
@@ -42,8 +109,6 @@ def build_configs(args):
     test_start = datetime.fromisoformat(args.test_start)
     test_end = datetime.fromisoformat(args.test_end)
     if args.synthetic:
-        from vit_grid_model_tpu.data import synthetic
-
         paths = synthetic.generate_tree(
             args.synthetic_root, test_start, test_end,
             prev_len=args.prev_len, output_dim=args.output_dim)

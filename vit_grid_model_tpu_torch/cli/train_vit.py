@@ -24,12 +24,19 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from vit_grid_model_tpu.core.config import (DataConfig, GridConfig,
-                                            MetNet3Config, TrainConfig)
 from vit_grid_model_tpu_torch.cli.evaluation_vit import select_device
 from vit_grid_model_tpu_torch.core import checkpoint as ckpt
+from vit_grid_model_tpu_torch.core.config import (DataConfig, GridConfig,
+                                                  MetNet3Config, TrainConfig)
 from vit_grid_model_tpu_torch.core.weights import (load_reference_checkpoint,
                                                    seeded_model)
+from vit_grid_model_tpu_torch.data import synthetic
+from vit_grid_model_tpu_torch.data.assembly import (sim_stack_to_model_input,
+                                                    sim_stack_to_nhwc_input)
+from vit_grid_model_tpu_torch.data.datasets import (
+    AirSimulationReanalysisDatasetV3)
+from vit_grid_model_tpu_torch.data.pipeline import BatchLoader
+from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
 from vit_grid_model_tpu_torch.evaluation import driver
 from vit_grid_model_tpu_torch.train.trainer import (build_train_step,
                                                     init_train_state,
@@ -126,10 +133,6 @@ def batches_from_dataset(dataset, data_cfg: DataConfig, batch_size: int,
     """Dataset samples -> train-step batches of numpy arrays, looping
     epochs.  The model input is staged in f32 (NHWC with ``nhwc``) and cast
     to the compute dtype on the device."""
-    from vit_grid_model_tpu.data.assembly import (sim_stack_to_model_input,
-                                                  sim_stack_to_nhwc_input)
-    from vit_grid_model_tpu.data.pipeline import BatchLoader
-
     shuffle = (shuffle_mode if shuffle_mode in ("batches", "buffer")
                else True)
     # the loader's SeedSequence refuses negative seeds
@@ -159,15 +162,9 @@ def main(argv=None, *, step_seconds: Optional[List[float]] = None,
     if args.data_parallel != 1:
         raise ValueError("--data_parallel is not ported yet")
 
-    from vit_grid_model_tpu.data.datasets import (
-        AirSimulationReanalysisDatasetV3)
-    from vit_grid_model_tpu.data.timeutil import eval_time_list
-
     train_start = datetime.fromisoformat(args.train_start)
     train_end = datetime.fromisoformat(args.train_end)
     if args.synthetic:
-        from vit_grid_model_tpu.data import synthetic
-
         paths = synthetic.generate_tree(
             args.synthetic_root, train_start, train_end,
             prev_len=args.prev_len, output_dim=args.output_dim)

@@ -2,17 +2,19 @@
 reference ``.pkt`` checkpoint, or from a numpy seed.
 
 The module tree uses exactly the state_dict keys of
-``vit_grid_model_tpu/core/torch_export.py::export_metnet3_state_dict``, so
-each source loads with ``load_state_dict(strict=True)`` and no converter.
+``core/export.py::export_metnet3_state_dict`` (the port's copy of the JAX
+package's exporter), so each source loads with
+``load_state_dict(strict=True)`` and no converter.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
-from vit_grid_model_tpu.core.config import MetNet3Config
-from vit_grid_model_tpu.core.torch_export import export_metnet3_state_dict
+from vit_grid_model_tpu_torch.core.config import MetNet3Config
+from vit_grid_model_tpu_torch.core.export import export_metnet3_state_dict
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 
 
@@ -40,12 +42,17 @@ def load_reference_checkpoint(path: str, cfg: MetNet3Config) -> MetNet3:
 
 
 def seeded_model(cfg: MetNet3Config, seed: int) -> MetNet3:
-    """The model with every parameter and BatchNorm statistic drawn from
-    ``np.random.default_rng(seed)``: torch-default fan-in uniform weights,
-    standard-normal embeddings and registers, norm gains near 1, and
-    running variances in [0.5, 1.5]."""
+    """The model with every parameter and BatchNorm statistic drawn by
+    ``seed_module``."""
+    return seed_module(MetNet3(cfg), seed)
+
+
+def seed_module(model: nn.Module, seed: int) -> nn.Module:
+    """``model`` with every parameter and BatchNorm statistic drawn from
+    ``np.random.default_rng(seed)``, in state_dict order: torch-default
+    fan-in uniform weights, standard-normal embeddings and registers, norm
+    gains near 1, and running variances in [0.5, 1.5].  In eval mode."""
     rng = np.random.default_rng(seed)
-    model = MetNet3(cfg)
     sd = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)

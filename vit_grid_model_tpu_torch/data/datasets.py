@@ -1,0 +1,239 @@
+"""The two CMAQ datasets the port's CLIs read.
+
+The port's own copy of the on-the-fly loading classes of
+``vit_grid_model_tpu/data/datasets.py``: ``AirSimulationReanalysisDatasetV3``
+(the train sample) and ``AirSimulationReanalysisDatasetOnly`` (the shipped
+eval sample).  Each is a map-style dataset returning numpy arrays in the
+reference's per-class tuple order, plus a ``collate`` that stacks samples.
+
+Windowing contract (``dataset.py:1089-1100``):
+``mod_idx = idx + prev_len - 1``; inputs ``[mod_idx-input_dim+1, mod_idx]``;
+targets ``[mod_idx+1, mod_idx+output_dim]``;
+``len = len(times) - (prev_len-1) - output_dim``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from vit_grid_model_tpu_torch.data import assembly, native
+from vit_grid_model_tpu_torch.data.bufferpool import POOL
+
+
+def _stack(samples):
+    return tuple(np.stack(field, axis=0) for field in zip(*samples))
+
+
+class _LazyCmaqDataset:
+    """Windowing, station features and on-the-fly CMAQ/NetCDF loading."""
+
+    #: class-level switch: None = auto (use the C++ plane when available)
+    use_native: Optional[bool] = None
+
+    #: (sim_position, prev_position) in the sample tuple, for the
+    #: fully-collated native batch path (``get_batch_collated``)
+    _sim_slots: Tuple[int, int]
+
+    collate = staticmethod(_stack)
+
+    def __init__(self, times, feats, masks, input_dim, output_dim, prev_len,
+                 korea_stn_num, china_stn_num, cmaq_size, sim_data_path,
+                 reanalysis_data_path, feat_infos):
+        self.times = times
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.prev_len = prev_len
+        self.korea_stn_num = korea_stn_num
+        self.china_stn_num = china_stn_num
+        self.total_stn_num = korea_stn_num + china_stn_num
+        self.feats = np.asarray(feats, dtype=np.float32)
+        self.masks = np.asarray(masks)
+        self.cmaq_size = tuple(cmaq_size)
+        self.sim_data_path = sim_data_path
+        self.reanalysis_data_path = reanalysis_data_path
+        self.feat_infos = feat_infos
+        # batch-level sim assembly parks per-index results here for
+        # _simulation_and_prev to pop; cleared after every batch
+        self._sim_cache = {}
+
+    def __len__(self) -> int:
+        return len(self.times) - (self.prev_len - 1) - self.output_dim
+
+    def _mod_idx(self, idx: int) -> int:
+        return idx + (self.prev_len - 1)
+
+    def load_feats(self, idx: int) -> np.ndarray:
+        m = self._mod_idx(idx)
+        return self.feats[m - self.input_dim + 1: m + 1]
+
+    def load_masks(self, idx: int) -> np.ndarray:
+        m = self._mod_idx(idx)
+        return self.masks[m - self.input_dim + 1:
+                          m + self.output_dim + 1].astype(bool)
+
+    def raw_times(self, idx: int) -> np.ndarray:
+        m = self._mod_idx(idx)
+        rows = []
+        for t_idx in range(self.input_dim + self.output_dim):
+            t = self.times[m - self.input_dim + 1 + t_idx]
+            rows.append([t.year, t.month, t.day, t.hour])
+        return np.asarray(rows, dtype=np.float32)
+
+    @property
+    def prefers_single_dispatch(self) -> bool:
+        """True when __getitem__ runs the internally-threaded native
+        assembler: BatchLoader then uses one dispatcher thread instead of a
+        Python worker pool, which would contend with the native pool."""
+        return self.use_native is not False and native.available()
+
+    @property
+    def n_species(self) -> int:
+        return self.feats.shape[-1] // 2
+
+    def get_batch_collated(self, indices):
+        """Assemble a consecutive batch DIRECTLY into its final batched
+        arrays, or return None when the fast path does not apply.  The
+        native ``vg_assemble_batch`` pass writes the batched (B, H, W, C)
+        layout straight from the files; only the small per-sample fields go
+        through ``np.stack``.  Byte-identical to
+        ``collate([self[i] for i in indices])``."""
+        indices = [int(i) for i in indices]
+        consecutive = all(b - a == 1 for a, b in zip(indices, indices[1:]))
+        if (not consecutive or len(indices) < 2 or self.use_native is False
+                or not native.available()):
+            return None
+        n_steps = self.prev_len + self.output_dim
+        hist = self.prev_len - self.input_dim
+        steps = self.times[indices[0]: indices[-1] + n_steps]
+        out = native.assemble_batch_native(
+            steps, len(indices), hist, n_steps, self.sim_data_path,
+            self.feat_infos, self.n_species, self.cmaq_size)
+        if out is None:
+            return None
+        sims, pm25 = out
+        sim_pos, prev_pos = self._sim_slots
+        prevs = np.stack([pm25[b: b + self.prev_len].mean(axis=1)
+                          for b in range(len(indices))])
+        # park views so _simulation_and_prev is not re-entered; the
+        # per-sample tuples carry them only until the fields swap below
+        try:
+            for b, idx in enumerate(indices):
+                self._sim_cache[idx] = (sims[b], prevs[b])
+            samples = [self[i] for i in indices]
+        finally:
+            self._sim_cache.clear()
+        if (samples[0][sim_pos].base is not sims
+                or samples[0][prev_pos].base is not prevs):
+            raise RuntimeError(f"{type(self).__name__}: bad _sim_slots")
+        fields = []
+        for j, field in enumerate(zip(*samples)):
+            if j == sim_pos:
+                fields.append(sims)
+            elif j == prev_pos:
+                fields.append(prevs)
+            else:
+                fields.append(np.stack(field, axis=0))
+        return tuple(fields)
+
+    def get_batch(self, indices):
+        """Assemble a whole batch: for a CONSECUTIVE index run the stacked
+        tensors are slices of ONE union assembly over ``B - 1 + n_steps``
+        steps; other runs take per-sample assembly.  Byte-identical either
+        way."""
+        indices = [int(i) for i in indices]
+        consecutive = all(b - a == 1 for a, b in zip(indices, indices[1:]))
+        if (consecutive and len(indices) > 1 and self.use_native is not False
+                and native.available()):
+            self._prime_sim_batch(indices)
+        try:
+            return [self[i] for i in indices]
+        finally:
+            self._sim_cache.clear()
+
+    def _prime_sim_batch(self, indices):
+        n_steps = self.prev_len + self.output_dim
+        steps = self.times[indices[0]: indices[-1] + n_steps]
+        out = native.assemble_steps_native(
+            steps, self.sim_data_path, self.feat_infos, self.n_species,
+            self.cmaq_size)
+        if out is None:
+            return
+        stack, pm25 = out
+        bc = 4 * self.n_species + 4
+        hist = self.prev_len - self.input_dim
+        for b, idx in enumerate(indices):
+            # channel-slice VIEWS of the union stack: collate makes the one
+            # contiguous copy
+            sim = stack[:, :, (b + hist) * bc: (b + n_steps) * bc]
+            prev = pm25[b: b + self.prev_len].mean(axis=1)
+            self._sim_cache[idx] = (sim, prev)
+
+    def _simulation_and_prev(self, idx):
+        if self._sim_cache:
+            cached = self._sim_cache.pop(idx, None)
+            if cached is not None:
+                return cached
+        use_native = self.use_native
+        if use_native is None or use_native:
+            if native.available():
+                # one GIL-free native pass over the sample's contiguous
+                # [history | input | output] step run
+                steps = self.times[idx: idx + self.prev_len
+                                   + self.output_dim]
+                out = native.assemble_steps_native(
+                    steps, self.sim_data_path, self.feat_infos,
+                    self.n_species, self.cmaq_size)
+                if out is not None:
+                    stack, pm25 = out
+                    bc = 4 * self.n_species + 4
+                    hist = self.prev_len - self.input_dim
+                    sim = stack[:, :, hist * bc:]
+                    prev_pm25 = pm25[:self.prev_len].mean(axis=1)
+                    sim_c = POOL.get(sim.shape, sim.dtype)
+                    np.copyto(sim_c, sim)
+                    return sim_c, np.ascontiguousarray(prev_pm25)
+            elif use_native:
+                raise RuntimeError("native data plane requested but "
+                                   "libcmaq_loader.so unavailable")
+        return assembly.assemble_simulation(
+            self.times, self._mod_idx(idx), idx,
+            input_dim=self.input_dim, output_dim=self.output_dim,
+            prev_len=self.prev_len, sim_data_path=self.sim_data_path,
+            feat_infos=self.feat_infos, n_species=self.n_species,
+            grid_shape=self.cmaq_size)
+
+    def _reanalysis_window(self, idx):
+        return assembly.read_reanalysis_window(
+            self.times, self._mod_idx(idx), output_dim=self.output_dim,
+            reanalysis_data_path=self.reanalysis_data_path,
+            grid_shape=self.cmaq_size)
+
+
+class AirSimulationReanalysisDatasetV3(_LazyCmaqDataset):
+    """Full train-style sample: station feats/masks + CMAQ stack + current
+    and future reanalysis + classes + grid PM history
+    (``dataset.py:676-1045``)."""
+
+    _sim_slots = (2, 7)        # (feats, masks, SIM, curr, re, cls, t, PREV)
+
+    def __getitem__(self, idx):
+        sim, prev_pm25 = self._simulation_and_prev(idx)
+        curr, re = self._reanalysis_window(idx)
+        cls = assembly.assign_class(re).astype(np.int32)
+        return (self.load_feats(idx), self.load_masks(idx), sim, curr, re,
+                cls, self.raw_times(idx), prev_pm25)
+
+
+class AirSimulationReanalysisDatasetOnly(_LazyCmaqDataset):
+    """The shipped eval dataset: v3 without the station tensors in the
+    return (``dataset.py:1058-1428``)."""
+
+    _sim_slots = (0, 5)        # (SIM, curr, re, cls, t, PREV)
+
+    def __getitem__(self, idx):
+        sim, prev_pm25 = self._simulation_and_prev(idx)
+        curr, re = self._reanalysis_window(idx)
+        cls = assembly.assign_class(re).astype(np.int32)
+        return (sim, curr, re, cls, self.raw_times(idx), prev_pm25)

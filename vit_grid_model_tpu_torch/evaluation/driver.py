@@ -5,7 +5,9 @@ Same observable behavior: station/grid/stat metadata loading, the test
 window, the batch loop with the persistence / CMAQ-21h / CMAQ-avg
 baselines, and the reference-format metric log.  The data plane
 (``BatchLoader``, datasets, assembly), the metric engine and the log writer
-are the JAX package's host code, imported unchanged.
+are the port's own copies of the JAX package's host code
+(``vit_grid_model_tpu_torch/data``, ``evaluation/metrics.py``,
+``evaluation/logwriter.py``).
 """
 
 from __future__ import annotations
@@ -20,19 +22,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vit_grid_model_tpu.core.config import DataConfig
-from vit_grid_model_tpu.data.assembly import (sim_stack_to_model_input,
-                                              sim_stack_to_nhwc_input)
-from vit_grid_model_tpu.data.datasets import AirSimulationReanalysisDatasetOnly
-from vit_grid_model_tpu.data.pipeline import BatchLoader
-from vit_grid_model_tpu.data.readers import _read_netcdf_var
-from vit_grid_model_tpu.data.timeutil import eval_time_list
-from vit_grid_model_tpu.evaluation import logwriter
-from vit_grid_model_tpu.evaluation.metrics import EvaluationMetrics
+from vit_grid_model_tpu_torch.core.config import DataConfig
+from vit_grid_model_tpu_torch.data.assembly import (sim_stack_to_model_input,
+                                                    sim_stack_to_nhwc_input)
+from vit_grid_model_tpu_torch.data.datasets import (
+    AirSimulationReanalysisDatasetOnly)
+from vit_grid_model_tpu_torch.data.pipeline import BatchLoader
+from vit_grid_model_tpu_torch.data.readers import read_netcdf_var
+from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
+from vit_grid_model_tpu_torch.evaluation import logwriter
+from vit_grid_model_tpu_torch.evaluation.metrics import EvaluationMetrics
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 
 # ---------------------------------------------------------------------------
-# metadata loading (host helpers of the JAX driver, which imports jax)
+# metadata loading (the host helpers of the JAX driver)
 # ---------------------------------------------------------------------------
 
 
@@ -74,8 +77,8 @@ def load_stations(data_path: str, grid_shape=(82, 67)) -> StationInfo:
             sim_coords[i] = [int(row[0]), int(row[1])]
     cmaq_coords = np.zeros(grid_shape + (2,), dtype=float)
     grid_nc = f"{data_path}/station_infos/GRID_INFO_09km.nc"
-    cmaq_coords[:, :, 0] = _read_netcdf_var(grid_nc, "LAT")
-    cmaq_coords[:, :, 1] = _read_netcdf_var(grid_nc, "LON")
+    cmaq_coords[:, :, 0] = read_netcdf_var(grid_nc, "LAT")
+    cmaq_coords[:, :, 1] = read_netcdf_var(grid_nc, "LON")
     return StationInfo(np.asarray(lats), np.asarray(lons), korea_regions,
                        korea, china, sim_coords, cmaq_coords)
 

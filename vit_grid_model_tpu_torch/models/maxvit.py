@@ -17,6 +17,8 @@ Training, the counterpart of ``maxvit_apply(training=True)``: MBConv
 batch-norms use batch statistics and append their updated running
 statistics to ``bn_stats``; each attention call draws dropout at the
 layer's rate from its own seed (two seeds per layer: block, then grid).
+``fold_bn_eval`` folds the MBConv batch-norms into their convs at
+inference only, as ``maxvit_apply`` does with ``spec.fold_bn_eval``.
 """
 
 from __future__ import annotations
@@ -51,10 +53,12 @@ class MaxViT(nn.Module):
     def __init__(self, dim: int, *, depth: Tuple[int, ...], cond_dim: int,
                  heads: int, dim_head: int, window_size: int,
                  mbconv_expansion_rate: int, mbconv_shrinkage_rate: float,
-                 num_register_tokens: int, dropout: float = 0.0):
+                 num_register_tokens: int, dropout: float = 0.0,
+                 fold_bn_eval: bool = False):
         super().__init__()
         self.window_size = window_size
         self.dropout = dropout
+        self.fold_bn_eval = fold_bn_eval
         self.num_register_tokens = num_register_tokens
         attn = dict(cond_dim=cond_dim, heads=heads, dim_head=dim_head,
                     window_size=window_size)
@@ -90,7 +94,7 @@ class MaxViT(nn.Module):
             block_seed = grid_seed = None
             if seeds is not None:
                 block_seed, grid_seed = seeds[2 * li], seeds[2 * li + 1]
-            x = conv(x, bn_stats)
+            x = conv(x, bn_stats, self.fold_bn_eval)
             b, d = x.shape[0], x.shape[1]
             x = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
 

@@ -21,7 +21,9 @@ the window attention drops out at ``cfg.dropout``.  Quirks kept:
   viewed per row, which mixes rows across the batch.
 
 ``cfg.fuse_lead_stem`` and ``cfg.nhwc_input`` select the lead-factorized
-stem and the host-prepared (B, Hp, Wp, T*C) input, as in the JAX package.
+stem and the host-prepared (B, Hp, Wp, T*C) input, and ``cfg.fold_bn_eval``
+the MBConv with its batch-norms folded (inference only), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from torch import Tensor, nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from vit_grid_model_tpu.core.config import MetNet3Config
+from vit_grid_model_tpu_torch.core.config import MetNet3Config
 from vit_grid_model_tpu_torch.models.maxvit import MaxViT
 from vit_grid_model_tpu_torch.ops import nn as vnn
 
@@ -179,8 +181,7 @@ class MetNet3(nn.Module):
     def __init__(self, cfg: MetNet3Config):
         super().__init__()
         unsupported = [name for name in ("pm10", "direct_regional",
-                                          "pm25_class_head", "int8_convs",
-                                          "fold_bn_eval")
+                                          "pm25_class_head", "int8_convs")
                        if getattr(cfg, name)]
         if unsupported or not cfg.pm25:
             raise ValueError(f"MetNet3: not ported: {unsupported or ['pm25']}")
@@ -203,7 +204,8 @@ class MetNet3(nn.Module):
             window_size=cfg.vit_window_size,
             mbconv_expansion_rate=cfg.mbconv_expansion_rate,
             mbconv_shrinkage_rate=cfg.mbconv_shrinkage_rate,
-            num_register_tokens=cfg.num_register_tokens, dropout=cfg.dropout)
+            num_register_tokens=cfg.num_register_tokens, dropout=cfg.dropout,
+            fold_bn_eval=cfg.fold_bn_eval)
         self.up = nn.ConvTranspose2d(ch, ch, 2, stride=2)
         self.resnet2 = ResnetBlocks(ch, ch, cfg.resnet_block_depth,
                                     cfg.lead_time_emb_dim)

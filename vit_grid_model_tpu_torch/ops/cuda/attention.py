@@ -15,20 +15,12 @@ its mask when the rate is above 0; for a CUDA tensor it runs
 fallback from one to the other, so both devices draw the same masks from
 the same seed.
 
-The kernel library is compiled at first use from the sources under
-``csrc/`` with ``nvcc`` (one process per source, in parallel) into
-``build/kernels/libvgm_kernels.so`` at the root of the checkout, and loaded
-with ctypes.
+The kernels live in the library that ``ops/cuda/library.py`` builds from
+``csrc/`` at first use.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -37,11 +29,8 @@ from torch import Tensor
 from vit_grid_model_tpu_torch.ops import nn as vnn
 from vit_grid_model_tpu_torch.ops.attention import (Attention, attention,
                                                     attention_core)
+from vit_grid_model_tpu_torch.ops.cuda import library
 from vit_grid_model_tpu_torch.ops.dropout import keep_constants, keep_mask
-
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-LIBRARY = _PKG.parent / "build" / "kernels" / "libvgm_kernels.so"
 
 MAX_TOKENS = 64
 MAX_DIM = 256
@@ -58,100 +47,10 @@ bwd_launches = 0      # K3, the backward
 hash_launches = 0
 mask_launches = 0     # the standalone keep-mask kernel
 
-_lib: Optional[ctypes.CDLL] = None
-
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xcompiler", "-fPIC"]
-
 
 def reset_launches() -> None:
     global launches, bwd_launches, hash_launches, mask_launches
     launches = bwd_launches = hash_launches = mask_launches = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
-    return found
-
-
-def build(force: bool = False) -> float:
-    """Compile ``csrc/*.cu`` into the kernel library unless it is newer than
-    every source and header: one ``nvcc`` per source, all started
-    together, then one link.  Returns the seconds spent (0.0 when the
-    library was current)."""
-    sources = sorted(CSRC.glob("*.cu"))
-    deps = sources + sorted(CSRC.glob("*.cuh"))
-    if (not force and LIBRARY.exists() and
-            all(LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in deps)):
-        return 0.0
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    objects = [LIBRARY.parent / f"{s.stem}.{tag}.o" for s in sources]
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(o),
-                               str(s)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for s, o in zip(sources, objects)]
-    errors = []
-    for proc, src in zip(procs, sources):
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
-    try:
-        if errors:
-            raise RuntimeError("nvcc failed: " + "\n".join(errors))
-        tmp = LIBRARY.with_suffix(f".{tag}")
-        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                              *map(str, objects)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                               f"{res.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        for o in objects:
-            if o.exists():
-                o.unlink()
-    return time.perf_counter() - t0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIBRARY))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vgm_window_attention_fwd.argtypes = (
-            [ptr] * 9 + [i32] * 8 + [i32, i32, f32, ptr])
-        lib.vgm_window_attention_bwd.argtypes = (
-            [ptr] * 14 + [i32] * 9 + [i32, i32, f32, ptr])
-        lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
-        for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
-                   lib.vgm_dropout_keep_mask):
-            fn.restype = ctypes.c_int
-        lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 4
-        lib.vgm_window_attention_bwd_slot_floats.restype = ctypes.c_long
-        lib.vgm_window_attention_bwd_smem_bytes.argtypes = [i32] * 3
-        lib.vgm_window_attention_bwd_smem_bytes.restype = ctypes.c_long
-        _lib = lib
-    return _lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
-def _stream(t: Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +121,13 @@ def window_attention_fwd(x: Tensor, k: KernelInputs, seed: int,
     bw, n, dim = x.shape
     heads, _, three_dh = k.wqkv.shape
     out = torch.empty_like(x)
-    _check(_library().vgm_window_attention_fwd(
+    library.check(library.load().vgm_window_attention_fwd(
         x.data_ptr(), k.gamma.data_ptr(), k.beta.data_ptr(),
         k.wqkv.data_ptr(), k.qg.data_ptr(), k.kg.data_ptr(),
         k.wout.data_ptr(), k.bias.data_ptr(), out.data_ptr(), bw, n, dim,
         heads, three_dh // 3, k.windows_per_sample, int(k.has_film),
-        int(x.dtype == torch.bfloat16), seed, threshold, scale, _stream(x)),
+        int(x.dtype == torch.bfloat16), seed, threshold, scale,
+        library.stream(x)),
         "window_attention_fwd")
     global launches, hash_launches
     launches += 1
@@ -244,7 +144,7 @@ def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
     bw, n, dim = x.shape
     heads, _, three_dh = k.wqkv.shape
     dh = three_dh // 3
-    lib = _library()
+    lib = library.load()
     floats = lib.vgm_window_attention_bwd_slot_floats(n, dim, heads, dh)
     # one CTA (and one f32 gradient slot) per SM; each CTA walks a
     # contiguous chunk of windows
@@ -255,14 +155,14 @@ def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
     dx = torch.empty_like(x)
     dgw = torch.empty(bw, dim, device=x.device)
     dbw = torch.empty(bw, dim, device=x.device)
-    _check(lib.vgm_window_attention_bwd(
+    library.check(lib.vgm_window_attention_bwd(
         x.data_ptr(), k.gamma.data_ptr(), k.beta.data_ptr(),
         k.wqkv.data_ptr(), k.qg.data_ptr(), k.kg.data_ptr(),
         k.wout.data_ptr(), k.bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dgw.data_ptr(), dbw.data_ptr(), grads.data_ptr(), slots.data_ptr(),
         bw, n, dim, heads, dh, k.windows_per_sample, int(k.has_film),
         int(x.dtype == torch.bfloat16), num_slots, seed, threshold, scale,
-        _stream(x)), "window_attention_bwd")
+        library.stream(x)), "window_attention_bwd")
     global bwd_launches, hash_launches
     bwd_launches += 1
     hash_launches += int(threshold != 0)
@@ -280,8 +180,9 @@ def dropout_keep_mask(seed: int, bw: int, heads: int, n: int, rate: float,
     by the kernel that evaluates the attention kernels' hash."""
     threshold, scale = keep_constants(rate)
     out = torch.empty(bw, heads, n, n, device=device)
-    _check(_library().vgm_dropout_keep_mask(
-        out.data_ptr(), bw, heads, n, seed, threshold, scale, _stream(out)),
+    library.check(library.load().vgm_dropout_keep_mask(
+        out.data_ptr(), bw, heads, n, seed, threshold, scale,
+        library.stream(out)),
         "dropout_keep_mask")
     global mask_launches
     mask_launches += 1
@@ -355,7 +256,7 @@ def window_attention(p: Attention, x: Tensor, cond: Optional[Tensor],
     k = kernel_inputs(p, x, cond, bias_indices, windows_per_sample)
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in k[:7])):
-        smem = _library().vgm_window_attention_bwd_smem_bytes(
+        smem = library.load().vgm_window_attention_bwd_smem_bytes(
             dim, dh, int(x.dtype == torch.bfloat16))
         if dim > BWD_MAX_DIM or smem > MAX_SMEM:
             raise ValueError(f"window_attention: the backward kernel takes "

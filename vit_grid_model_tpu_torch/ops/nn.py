@@ -86,6 +86,19 @@ def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d, *,
     return y, new_mean, new_var
 
 
+def fold_bn_into_conv(weight: Tensor, bias: Optional[Tensor],
+                      bn: nn.BatchNorm2d) -> Tuple[Tensor, Tensor]:
+    """An eval-mode BatchNorm folded into the preceding conv, the
+    counterpart of ``vit_grid_model_tpu/ops/nn.py::fold_bn_into_conv``:
+    ``BN(conv(x)) == conv'(x)`` with ``w' = w * s`` and
+    ``b' = (b - mean) * s + bias``, ``s = scale * rsqrt(var + eps)``.  OIHW
+    weights keep the output channel first, depthwise convs included."""
+    s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    b = bias if bias is not None else torch.zeros_like(bn.running_mean)
+    return (weight * s.view(-1, 1, 1, 1),
+            (b - bn.running_mean) * s + bn.bias)
+
+
 def chan_layer_norm(x: Tensor, g: Tensor, b: Tensor, *,
                     eps: float = 1e-5) -> Tensor:
     """LayerNorm over the channel axis of NCHW with biased variance and

@@ -36,7 +36,7 @@ import torch
 from torch import Tensor
 from torch.func import functional_call
 
-from vit_grid_model_tpu.core.config import MetNet3Config, TrainConfig
+from vit_grid_model_tpu_torch.core.config import MetNet3Config, TrainConfig
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.train import losses as L
 
