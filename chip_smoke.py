@@ -8,7 +8,9 @@ kernel against its plain PyTorch version on the card, runs the shipped
 12-hour MetNet3 (random weights from a numpy seed) on the GPU and on the
 CPU, drives the ``--fast`` evaluation CLI over a synthetic data tree at
 batch 25, drives the ``--fast`` training CLI for 12 steps at batch 4, and
-drives the R15 repro (the fused MBConv against cuDNN's passes).  Phases:
+drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
+repro (per-head attention at 8 and 16 windows a CTA) and the R7 repro (one
+MaxViT layer's block and grid attention in one launch).  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -30,7 +32,15 @@ drives the R15 repro (the fused MBConv against cuDNN's passes).  Phases:
    shape in both types, the 12-hour model's own MBConv), bit-identical on
    a second launch; then the repro's entry point, which must go through
    the kernel, with kernel, plain and stock-folded times; and the stock
-   MBConv's share of the B=25 ``--fast`` forward's kernel time.
+   MBConv's share of the B=25 ``--fast`` forward's kernel time;
+8. R1/R14: the per-head attention kernel vs its plain version at 8 and 16
+   windows a CTA (bf16 at Bw 2,880, f32, a ragged Bw, 3 heads x 16),
+   bit-identical on a second launch; then the repro's entry point, which
+   must launch the kernel at both settings, with kernel and plain times;
+9. R7: the MaxViT layer megakernel vs its plain version (bf16 at S 96 and
+   300, f32 at S 2, a diverging-score case in both types), bit-identical on
+   a second launch; then the repro's entry point, which must launch it,
+   with kernel, plain and two-K1 baseline times.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -82,8 +92,12 @@ GRAD_NAMES = ("dx", "dgamma_w", "dbeta_w", "dwqkv", "dwout", "dqg", "dkg",
               "dbias")
 
 
+_START = time.perf_counter()
+
+
 def phase(n, title):
-    print(f"\n== phase {n}: {title}", flush=True)
+    print(f"\n== phase {n}: {title} (at {time.perf_counter() - _START:.0f} s)",
+          flush=True)
 
 
 def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed):
@@ -647,10 +661,23 @@ MBCONV_CASES = [
 ]
 
 
+def kernel_errors(ours, again, ref, what):
+    """(max|ours - ref|, max|ref|) in f32 of a kernel's output against its
+    plain version's.  Raises on a value that is not finite and on a second
+    launch (``again``) that is not bit-identical."""
+    import torch
+
+    if not bool(torch.isfinite(ours.float()).all()):
+        raise AssertionError(f"{what}: the kernel's value is not finite")
+    if not torch.equal(ours, again):
+        raise AssertionError(f"{what}: two launches differ")
+    ours, ref = ours.float(), ref.float()
+    return (ours - ref).abs().max().item(), ref.abs().max().item()
+
+
 def mbconv_errors(x, ops, spb):
-    """The fused MBConv kernel against its plain version: (max|kernel -
-    plain|, max|plain|).  Raises on a value that is not finite and on a
-    second launch that is not bit-identical."""
+    """The fused MBConv kernel against its plain version: see
+    ``kernel_errors``."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda.mbconv import fused_mbconv
@@ -661,12 +688,7 @@ def mbconv_errors(x, ops, spb):
         again = fused_mbconv(x, ops, samples_per_block=spb)
         ref = fused_mbconv_reference(x, ops)
         torch.cuda.synchronize()
-    if not bool(torch.isfinite(ours.float()).all()):
-        raise AssertionError("fused MBConv: the kernel's value is not finite")
-    if not torch.equal(ours, again):
-        raise AssertionError("fused MBConv: two launches differ")
-    ours, ref = ours.float(), ref.float()
-    return (ours - ref).abs().max().item(), ref.abs().max().item()
+    return kernel_errors(ours, again, ref, "fused MBConv")
 
 
 def mbconv_vs_plain(dev):
@@ -705,24 +727,6 @@ def mbconv_vs_plain(dev):
         del x, ops
         torch.cuda.empty_cache()
     return report
-
-
-def mbconv_repro_path():
-    """Phase 7b: the R15 repro's entry point, every count set to 0 just
-    before it.  Returns (kernel launches, its results)."""
-    import torch
-
-    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
-    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
-
-    cuda_mbconv.reset_launches()
-    results = repro.main()
-    torch.cuda.synchronize()
-    launches = cuda_mbconv.launches
-    print(f"fused_mbconv launched {launches} times by the repro", flush=True)
-    if launches == 0:
-        raise AssertionError("the repro did not run the fused MBConv kernel")
-    return launches, results
 
 
 def mbconv_share(dev, card):
@@ -766,20 +770,144 @@ def mbconv_share(dev, card):
           flush=True)
 
 
+# R1/R14 comparison cases: (name, Bw, n, dim, heads, dim_head, dtype); Bw 37
+# leaves a ragged last tile at 8 and at 16 windows a CTA
+PERHEAD_CASES = [
+    ("repro Bw=2,880", 2880, 56, 128, 32, 32, "bfloat16"),
+    ("f32 Bw=40", 40, 56, 128, 32, 32, "float32"),
+    ("ragged Bw=37", 37, 56, 128, 32, 32, "bfloat16"),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "float32"),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "bfloat16"),
+]
+
+
+def perhead_vs_plain(dev):
+    """Phase 8a: the R1/R14 kernel against its plain version at 8 and 16
+    windows a CTA.  Returns {windows a CTA: max|kernel - plain|} at Bw
+    2,880 in bf16."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda.attention_variants import (
+        perhead_attention)
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    report = {}
+    for name, bw, n, dim, heads, dh, dtype_name in PERHEAD_CASES:
+        dtype = getattr(torch, dtype_name)
+        x, wqkv, bias = repro.inputs(bw, dtype, dev, SEED, n=n, dim=dim,
+                                     heads=heads, dim_head=dh)
+        with torch.inference_mode():
+            ref = perhead_qkv_attention(x, wqkv, bias, heads, dh)
+            for wpc in repro.WINDOWS_PER_CTA:
+                ours = perhead_attention(x, wqkv, bias, wpc)
+                again = perhead_attention(x, wqkv, bias, wpc)
+                torch.cuda.synchronize()
+                err, scale = kernel_errors(ours, again, ref,
+                                             f"{name} wpc={wpc}")
+                tol = TOLERANCE[dtype_name]
+                print(f"{name:16s} {dtype_name:8s} Bw={bw:4d} wpc={wpc:2d}: "
+                      f"max|d|={err:.3e} max|plain|={scale:.3e} "
+                      f"rel={err / scale:.3e} (tol {tol:g}); second launch "
+                      "bit-identical", flush=True)
+                if not err <= tol * scale:
+                    raise AssertionError(f"{name} {dtype_name} wpc={wpc}: "
+                                         f"kernel differs from plain by {err}")
+                if bw == 2880:
+                    report[wpc] = err
+        del x, wqkv, bias, ref, ours, again
+        torch.cuda.empty_cache()
+    return report
+
+
+def repro_path(module, wrappers, counts):
+    """Phases 7b, 8b and 9b: a repro's entry point, the launch counts of
+    its kernels' wrapper modules set to 0 just before it.  Returns (the
+    counts ``counts()`` reads just after, the repro's results); raises when
+    one of them is 0."""
+    import torch
+
+    for wrapper in wrappers:
+        wrapper.reset_launches()
+    results = module.main()
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"{module.__name__} launched its kernel: {launched}", flush=True)
+    if not all(launched.values()):
+        raise AssertionError(f"{module.__name__} did not launch every "
+                             f"kernel setting: {launched}")
+    return launched, results
+
+
+# R7 comparison cases: (name, S, dtype, head-0 bias offset); the offset
+# puts head 0's scores ~200 below head 1's in both attentions
+LAYER_CASES = [
+    ("repro S=96", 96, "bfloat16", 0.0),
+    ("flagship S=300", 300, "bfloat16", 0.0),
+    ("f32 S=2", 2, "float32", 0.0),
+    ("diverging S=4", 4, "bfloat16", -200.0),
+    ("diverging S=4", 4, "float32", -200.0),
+]
+
+
+def layer_vs_plain(dev):
+    """Phase 9a: the R7 megakernel against its plain version.  Returns
+    max|kernel - plain| at S = 300 in bf16."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        maxvit_layer_attention as plain_layer)
+    from vit_grid_model_tpu_torch.ops.cuda.attention_variants import (
+        maxvit_layer_attention)
+    from vit_grid_model_tpu_torch.repros import megakernel as repro
+
+    report = None
+    for name, s, dtype_name, offset in LAYER_CASES:
+        dtype = getattr(torch, dtype_name)
+        block_attn, grid_attn, regs = repro.layer(SEED)
+        for m in (block_attn, grid_attn):
+            with torch.no_grad():
+                m.rel_pos_bias.weight[:, 0] += offset
+        x, cond = repro.inputs(s, dtype, dev, SEED + 3)
+        r, ops_b, ops_g = repro.layer_operands(
+            block_attn.to(dev), grid_attn.to(dev), regs.to(dev), cond, dtype)
+        with torch.inference_mode():
+            ref = plain_layer(x, r, ops_b, ops_g, repro.WIN)
+            ours = maxvit_layer_attention(x, r, ops_b, ops_g, repro.WIN)
+            again = maxvit_layer_attention(x, r, ops_b, ops_g, repro.WIN)
+            torch.cuda.synchronize()
+        err, scale = kernel_errors(ours, again, ref, name)
+        tol = TOLERANCE[dtype_name]
+        print(f"{name:16s} {dtype_name:8s}: max|d|={err:.3e} max|plain|="
+              f"{scale:.3e} rel={err / scale:.3e} (tol {tol:g}); second "
+              "launch bit-identical", flush=True)
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} {dtype_name}: the megakernel "
+                                 f"differs from plain by {err}")
+        if (s, dtype_name) == (300, "bfloat16"):
+            report = err
+        del x, ref, ours, again, ops_b, ops_g
+        torch.cuda.empty_cache()
+    return report
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection; the backward
     recomputes the forward and runs eight more) at the bf16 tensor-core
     peak, against x and y (and dy, dx) moved once."""
+    import torch
+
+    from vit_grid_model_tpu_torch.repros.common import bound_ms
+
     fwd = 2 * n * dim * 3 * heads * dh + 4 * heads * n * n * dh \
         + 2 * n * heads * dh * dim
     bwd = 2 * 2 * n * dim * heads * dh + 4 * 2 * heads * n * n * dh \
         + 2 * 2 * n * dim * 3 * heads * dh
     ops = bw * (fwd + (bwd if backward else 0))
     moved = bw * n * dim * item * (4 if backward else 2)
-    t_ops, t_bytes = ops / 989e12, moved / 3.35e12
-    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops
-                                      else "operations")
+    return bound_ms(ops, moved, torch.bfloat16)
 
 
 def main() -> int:
@@ -790,9 +918,12 @@ def main() -> int:
         return 2
     phase(0, "device")
     from vit_grid_model_tpu_torch.data import native
-    from vit_grid_model_tpu_torch.ops.cuda import library
-    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
-    from vit_grid_model_tpu_torch.repros.common import card_line
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants, library
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.repros import (
+        baseline_perhead as repro_perhead, fused_mbconv as repro,
+        megakernel as repro_mega)
+    from vit_grid_model_tpu_torch.repros.common import bound_ms, card_line
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -838,10 +969,28 @@ def main() -> int:
     mb_err = mbconv_vs_plain(dev)
 
     phase("7b", "R15 path: the fused MBConv repro")
-    mb_launches, mb_results = mbconv_repro_path()
+    mb_launches, mb_results = repro_path(
+        repro, [cuda_mbconv], lambda: {"fused_mbconv": cuda_mbconv.launches})
 
     phase("7c", "the stock MBConv's share of the --fast forward")
     mbconv_share(dev, card)
+
+    phase("8a", "R1/R14 per-head attention kernel vs plain on the card")
+    ph_err = perhead_vs_plain(dev)
+
+    phase("8b", "R1/R14 path: the per-head attention repro")
+    ph_launches, ph_results = repro_path(
+        repro_perhead, [attention_variants], lambda: {
+            wpc: attention_variants.perhead_launches[wpc]
+            for wpc in repro_perhead.WINDOWS_PER_CTA})
+
+    phase("9a", "R7 MaxViT layer megakernel vs plain on the card")
+    layer_err = layer_vs_plain(dev)
+
+    phase("9b", "R7 path: the megakernel repro")
+    layer_launches, layer_results = repro_path(
+        repro_mega, [attention_variants],
+        lambda: {"maxvit_layer_attention": attention_variants.layer_launches})
 
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
@@ -854,7 +1003,7 @@ def main() -> int:
     bwd_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2,
                                    backward=True)
     # the standalone mask kernel writes an f32 mask and does no products
-    mask_bound = (1e3 * TRAIN_WINDOWS * 32 * 53 * 53 * 4 / 3.35e12, "bytes")
+    mask_bound = bound_ms(0, TRAIN_WINDOWS * 32 * 53 * 53 * 4, torch.float32)
     mb_bound = repro.bound_ms(384, repro.H, repro.W, repro.DIM,
                               repro.DIM * repro.EXPANSION, repro.DIM,
                               torch.bfloat16)
@@ -868,9 +1017,29 @@ def main() -> int:
         ("dropout_keep_mask", "dropout_hash.cuh", f"{tpu}:68",
          train_counts["dropout_keep_mask"], m_err, m_ms, mp_ms, mask_bound),
         ("fused_mbconv", "fused_mbconv.cu",
-         "benchmarks/mosaic_repros/repro_fused_mbconv.py:101", mb_launches,
+         "benchmarks/mosaic_repros/repro_fused_mbconv.py:101",
+         mb_launches["fused_mbconv"],
          mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound)]
-    # no single PyTorch call computes any of these functions: library_ms
+    # R1 and R14 at the repro's Bw = 2,880, R7 at the flagship S = 300
+    ph = ph_results[2880]
+    ph_bound = repro_perhead.bound_ms(
+        2880, repro_perhead.N_PAD, repro_perhead.DIM, repro_perhead.HEADS,
+        repro_perhead.DIM_HEAD, torch.bfloat16)
+    for wpc, replaces in ((8, "repro_baseline_perhead.py:60"),
+                          (16, "repro_16window_tile.py:20")):
+        kernels.append((f"perhead_attention_w{wpc}", "perhead_attention.cu",
+                        f"benchmarks/mosaic_repros/{replaces}",
+                        ph_launches[wpc], ph_err[wpc],
+                        ph[f"kernel wpc={wpc}"][0], ph["plain"][0], ph_bound))
+    ly = layer_results[300]
+    kernels.append((
+        "maxvit_layer_attention", "maxvit_layer_attention.cu",
+        "benchmarks/mosaic_repros/repro_megakernel.py:283",
+        layer_launches["maxvit_layer_attention"], layer_err,
+        ly["kernel"][0], ly["plain"][0],
+        repro_mega.bound_ms(300, torch.bfloat16)))
+    # no single PyTorch call computes any of these functions (SDPA covers
+    # neither a projection, the l2 norm nor the repartition): library_ms
     # stays null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 GPU: the window-attention forward (with and without dropout), its backward,
-the dropout keep mask and the fused MBConv.  Skips without a CUDA device.
+the dropout keep mask, the fused MBConv, the per-head attention of R1/R14
+and the MaxViT layer megakernel of R7.  Skips without a CUDA device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -9,8 +10,10 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
 f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
-the forward.  The keep mask is bit-equal.  Layers and inputs come from
-``chip_smoke.attention_case`` and ``repros/fused_mbconv.py`` (numpy seeds).
+the forward, as are R1/R14 and R7, whose second launches are bit-identical.
+The keep mask is bit-equal.  Layers and inputs come from
+``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
+seeds).
 """
 
 import pytest
@@ -223,3 +226,88 @@ def test_fused_mbconv_rejects_other_widths():
     ops = tuple(t.to(dev) for t in mbconv_kernel_operands(repro.block(16)))
     with pytest.raises(ValueError):
         cuda_mbconv.fused_mbconv(torch.zeros(1, 4, 4, 16, device=dev), ops)
+
+
+@pytest.mark.parametrize("wpc", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head", [
+    (40, 56, 128, 32, 32),      # the repro's widths, whole tiles at 8
+    (37, 56, 48, 3, 16),        # a ragged last tile, off the flagship widths
+    (5, 9, 32, 2, 64)])         # fewer windows than a tile, dim_head 64
+def test_perhead_attention_matches_plain(bw, n, dim, heads, dim_head, dtype,
+                                         wpc):
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                 dim=dim, heads=heads, dim_head=dim_head)
+    before = av.perhead_launches[wpc]
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, heads, dim_head)
+        ours = av.perhead_attention(x, wqkv, bias, wpc)
+        again = av.perhead_attention(x, wqkv, bias, wpc)
+    torch.cuda.synchronize()
+    assert av.perhead_launches[wpc] == before + 2
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "perhead")
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_perhead_attention_rejects_shapes_out_of_range():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(4, torch.float32, torch.device("cuda"), 0,
+                                 n=9, dim=32, heads=2, dim_head=8)
+    with pytest.raises(ValueError):
+        av.perhead_attention(x, wqkv, bias, 8)
+    with pytest.raises(ValueError):
+        av.perhead_attention(x.to(torch.float16), wqkv, bias, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0.0, -200.0])
+def test_maxvit_layer_attention_matches_plain(dtype, offset):
+    """S = 3 sample-leads; offset -200 puts head 0's scores ~200 below
+    head 1's in both attentions."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        maxvit_layer_attention as plain_layer)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import megakernel as repro
+
+    dev = torch.device("cuda")
+    block_attn, grid_attn, regs = repro.layer(0)
+    for m in (block_attn, grid_attn):
+        with torch.no_grad():
+            m.rel_pos_bias.weight[:, 0] += offset
+    x, cond = repro.inputs(3, dtype, dev, 1)
+    r, ob, og = repro.layer_operands(block_attn.to(dev), grid_attn.to(dev),
+                                     regs.to(dev), cond, dtype)
+    before = av.layer_launches
+    with torch.inference_mode():
+        ref = plain_layer(x, r, ob, og, repro.WIN)
+        ours = av.maxvit_layer_attention(x, r, ob, og, repro.WIN)
+        again = av.maxvit_layer_attention(x, r, ob, og, repro.WIN)
+    torch.cuda.synchronize()
+    assert av.layer_launches == before + 2
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "layer")
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_maxvit_layer_attention_rejects_maps_the_windows_do_not_tile():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import megakernel as repro
+
+    dev = torch.device("cuda")
+    block_attn, grid_attn, regs = (t.to(dev) for t in repro.layer(0))
+    x, cond = repro.inputs(1, torch.float32, dev, 1)
+    r, ob, og = repro.layer_operands(block_attn, grid_attn, regs, cond,
+                                     torch.float32)
+    with pytest.raises(ValueError):
+        av.maxvit_layer_attention(x[:, :40].contiguous(), r, ob, og,
+                                  repro.WIN)

@@ -14,17 +14,21 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 41, names
+assert len(names) >= 45, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-from vit_grid_model_tpu_torch.ops.cuda import attention, library, mbconv
+from vit_grid_model_tpu_torch.ops.cuda import (attention, attention_variants,
+                                               library, mbconv)
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vit_grid_model_tpu',
                               'benchmarks')]
 assert not bad, bad
 assert library._lib is None
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
+assert attention_variants.layer_launches == 0
+assert attention_variants.perhead_launches[8] == 0
+assert attention_variants.perhead_launches[16] == 0
 print(len(names))
 """
 

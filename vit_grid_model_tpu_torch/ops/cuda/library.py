@@ -100,9 +100,20 @@ def load() -> ctypes.CDLL:
             [ptr] * 14 + [i32] * 9 + [i32, i32, f32, ptr])
         lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
         lib.vgm_fused_mbconv.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
+        lib.vgm_perhead_attention.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.vgm_maxvit_layer_attention.argtypes = ([ptr] * 17 + [i32] * 9
+                                                   + [ptr])
         for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
-                   lib.vgm_dropout_keep_mask, lib.vgm_fused_mbconv):
+                   lib.vgm_dropout_keep_mask, lib.vgm_fused_mbconv,
+                   lib.vgm_perhead_attention,
+                   lib.vgm_maxvit_layer_attention):
             fn.restype = ctypes.c_int
+        lib.vgm_perhead_attention_smem_bytes.argtypes = [i32] * 3
+        lib.vgm_perhead_attention_smem_bytes.restype = ctypes.c_long
+        lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 7
+        lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
+        lib.vgm_maxvit_layer_attention_active_clusters.argtypes = [i32] * 7
+        lib.vgm_maxvit_layer_attention_active_clusters.restype = ctypes.c_int
         lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 4
         lib.vgm_window_attention_bwd_slot_floats.restype = ctypes.c_long
         lib.vgm_window_attention_bwd_smem_bytes.argtypes = [i32] * 3

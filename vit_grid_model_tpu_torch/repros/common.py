@@ -17,6 +17,21 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import Tensor
 
+# the card's published peaks (H100 SXM data sheet): tensor-core bf16,
+# CUDA-core f32, device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(ops: float, moved: float,
+             dtype: torch.dtype) -> Tuple[float, str]:
+    """(least ms, what bounds it) of work that does ``ops`` operations in
+    ``dtype`` and must move ``moved`` bytes: the larger of the two times at
+    the card's peak rates."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], moved / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "bytes" if t_bytes > t_ops else "operations")
+
 
 def require_cuda() -> torch.device:
     if not torch.cuda.is_available():

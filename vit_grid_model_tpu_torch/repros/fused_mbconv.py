@@ -40,11 +40,6 @@ CASES = {"repro B=32 x 12 leads": 384, "flagship eval B=25 x 12 leads": 300}
 # max|kernel - plain| / max|plain|
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# the card's published peaks (H100 SXM data sheet): tensor-core bf16,
-# CUDA-core f32, device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
-
 
 def block(dim: int = DIM, seed: int = 0) -> MBConvResidual:
     """A residual MBConv of width ``dim`` (hidden 4 x dim, SE dim) with
@@ -69,9 +64,7 @@ def bound_ms(n: int, h: int, w: int, c: int, hid: int, se: int,
     weights = (2 * c * hid + 9 * hid + 2 * hid * se + 3 * hid + se + c) * 4
     moved = 2 * n * h * w * c * item + weights
     ops = n * h * w * (4 * c * hid + 18 * hid) + n * 4 * hid * se
-    t_bytes, t_ops = moved / PEAK_BYTES, ops / PEAK_FLOPS[dtype]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations")
+    return common.bound_ms(ops, moved, dtype)
 
 
 def run(n: int, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
