@@ -9,8 +9,9 @@ kernel against its plain PyTorch version on the card, runs the shipped
 CPU, drives the ``--fast`` evaluation CLI over a synthetic data tree at
 batch 25, drives the ``--fast`` training CLI for 12 steps at batch 4, and
 drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
-repro (per-head attention at 8 and 16 windows a CTA) and the R7 repro (one
-MaxViT layer's block and grid attention in one launch).  Phases:
+repro (per-head attention at 8 and 16 windows a CTA), the R7 repro (one
+MaxViT layer's block and grid attention in one launch) and the repros of
+R1's variants R4, R10, R9 and R11.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -40,7 +41,14 @@ MaxViT layer's block and grid attention in one launch).  Phases:
 9. R7: the MaxViT layer megakernel vs its plain version (bf16 at S 96 and
    300, f32 at S 2, a diverging-score case in both types), bit-identical on
    a second launch; then the repro's entry point, which must launch it,
-   with kernel, plain and two-K1 baseline times.
+   with kernel, plain and two-K1 baseline times;
+10. R4, R10, R9 and R11: the head-major batched kernel, the stacked-softmax
+   kernel, R9's route through the per-head kernel, R11's core kernel and
+   R11 whole vs their plain versions (bf16 at Bw 2,880, f32, a ragged Bw,
+   3 heads x 16, a diverging-score case in both types), bit-identical on a
+   second launch; then the four repros' entry points, each of which must
+   launch its kernel, with kernel, plain and R1-kernel times (R11 also the
+   core against SDPA).
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -822,7 +830,7 @@ def perhead_vs_plain(dev):
 
 
 def repro_path(module, wrappers, counts):
-    """Phases 7b, 8b and 9b: a repro's entry point, the launch counts of
+    """Phases 7b, 8b, 9b and 10b: a repro's entry point, the launch counts of
     its kernels' wrapper modules set to 0 just before it.  Returns (the
     counts ``counts()`` reads just after, the repro's results); raises when
     one of them is 0."""
@@ -892,6 +900,91 @@ def layer_vs_plain(dev):
     return report
 
 
+# R4, R10, R9 and R11 comparison cases: (name, Bw, n, dim, heads, dim_head,
+# dtype, head-0 bias offset); Bw 37 leaves a ragged last tile of 8 windows,
+# and -200 puts head 0's scores ~200 below head 1's
+VARIANT_CASES = [
+    ("repro Bw=2,880", 2880, 56, 128, 32, 32, "bfloat16", 0.0),
+    ("f32 Bw=40", 40, 56, 128, 32, 32, "float32", 0.0),
+    ("ragged Bw=37", 37, 56, 128, 32, 32, "bfloat16", 0.0),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "float32", 0.0),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "bfloat16", 0.0),
+    ("diverging", 40, 56, 128, 32, 32, "bfloat16", -200.0),
+    ("diverging", 40, 56, 128, 32, 32, "float32", -200.0),
+]
+
+
+def variant_routes(x, wqkv, bias, heads, dh):
+    """Phase 10a's routes on one input: {name: (kernel call, plain call)}.
+    R11's core runs on the staged operands of its plain version."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    qkv = torch.matmul(x.float(), wqkv.float())
+    qn, kn, v = plain.stage_headmajor(qkv, heads, dh, x.dtype)
+    w4 = weight4(wqkv, heads)
+
+    def r1():
+        return plain.perhead_qkv_attention(x, wqkv, bias, heads, dh)
+
+    return {
+        "headmajor_attention": (
+            lambda: av.headmajor_attention(x, wqkv, bias), r1),
+        "stacked_softmax_attention": (
+            lambda: av.stacked_softmax_attention(x, wqkv, bias), r1),
+        "perhead_weight_attention": (
+            lambda: av.perhead_weight_attention(x, w4, bias), r1),
+        "staged_attention_core": (
+            lambda: av.staged_attention_core(qn, kn, v, bias),
+            lambda: plain.staged_headmajor_core(qn, kn, v, bias)),
+        "staged_attention": (
+            lambda: av.staged_attention(x, wqkv, bias),
+            lambda: plain.staged_headmajor_attention(x, wqkv, bias, heads,
+                                                     dh)),
+    }
+
+
+def variants_vs_plain(dev):
+    """Phase 10a: R4's, R10's and R11's kernels, R11 whole and R9's route
+    against their plain versions.  Returns {route: max|kernel - plain|} at
+    Bw 2,880 in bf16."""
+    import torch
+
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    report = {}
+    for name, bw, n, dim, heads, dh, dtype_name, offset in VARIANT_CASES:
+        dtype = getattr(torch, dtype_name)
+        x, wqkv, bias = repro.inputs(bw, dtype, dev, SEED, n=n, dim=dim,
+                                     heads=heads, dim_head=dh)
+        bias[0] += offset
+        tol = TOLERANCE[dtype_name]
+        with torch.inference_mode():
+            for route, (kernel, plain) in variant_routes(x, wqkv, bias, heads,
+                                                         dh).items():
+                ref = plain()
+                ours = kernel()
+                again = kernel()
+                torch.cuda.synchronize()
+                err, scale = kernel_errors(ours, again, ref, f"{name} {route}")
+                print(f"{name:15s} {dtype_name:8s} Bw={bw:4d} {route:26s}: "
+                      f"max|d|={err:.3e} max|plain|={scale:.3e} "
+                      f"rel={err / scale:.3e} (tol {tol:g}); second launch "
+                      "bit-identical", flush=True)
+                if not err <= tol * scale:
+                    raise AssertionError(f"{name} {dtype_name} {route}: "
+                                         f"kernel differs from plain by {err}")
+                if bw == 2880:
+                    report[route] = err
+                del ref, ours, again
+        del x, wqkv, bias
+        torch.cuda.empty_cache()
+    return report
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection; the backward
@@ -922,7 +1015,9 @@ def main() -> int:
     from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
     from vit_grid_model_tpu_torch.repros import (
         baseline_perhead as repro_perhead, fused_mbconv as repro,
-        megakernel as repro_mega)
+        headmajor_batched as repro_r4, megakernel as repro_mega,
+        perhead_weight_gemm as repro_r9, stacked_softmax as repro_r10,
+        staged_headmajor as repro_r11)
     from vit_grid_model_tpu_torch.repros.common import bound_ms, card_line
 
     dev = torch.device("cuda:0")
@@ -992,6 +1087,23 @@ def main() -> int:
         repro_mega, [attention_variants],
         lambda: {"maxvit_layer_attention": attention_variants.layer_launches})
 
+    phase("10a", "R4, R10, R9 and R11 kernels vs plain on the card")
+    variant_err = variants_vs_plain(dev)
+
+    phase("10b", "R4, R10, R9 and R11 paths: their repros")
+    av = attention_variants
+    variant_runs = {}
+    for module, route, count in (
+            (repro_r4, "headmajor_attention", lambda: av.headmajor_launches),
+            (repro_r10, "stacked_softmax_attention",
+             lambda: av.stacked_launches),
+            (repro_r9, "perhead_weight_attention",
+             lambda: av.perhead_weight_launches),
+            (repro_r11, "staged_attention_core",
+             lambda: av.staged_core_launches)):
+        variant_runs[route] = repro_path(module, [av],
+                                         lambda: {route: count()})
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
     m_err, m_ms, mp_ms = mask_report
@@ -1011,15 +1123,18 @@ def main() -> int:
           "times", flush=True)
     kernels = [
         ("window_attention_fwd", "window_attention_fwd.cu", f"{tpu}:139",
-         train_counts["window_attention_fwd"], err, k_ms, p_ms, fwd_bound),
+         train_counts["window_attention_fwd"], err, k_ms, p_ms, fwd_bound,
+         None),
         ("window_attention_bwd", "window_attention_bwd.cu", f"{tpu}:534",
-         train_counts["window_attention_bwd"], b_err, b_ms, r_ms, bwd_bound),
+         train_counts["window_attention_bwd"], b_err, b_ms, r_ms, bwd_bound,
+         None),
         ("dropout_keep_mask", "dropout_hash.cuh", f"{tpu}:68",
-         train_counts["dropout_keep_mask"], m_err, m_ms, mp_ms, mask_bound),
+         train_counts["dropout_keep_mask"], m_err, m_ms, mp_ms, mask_bound,
+         None),
         ("fused_mbconv", "fused_mbconv.cu",
          "benchmarks/mosaic_repros/repro_fused_mbconv.py:101",
          mb_launches["fused_mbconv"],
-         mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound)]
+         mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound, None)]
     # R1 and R14 at the repro's Bw = 2,880, R7 at the flagship S = 300
     ph = ph_results[2880]
     ph_bound = repro_perhead.bound_ms(
@@ -1030,23 +1145,49 @@ def main() -> int:
         kernels.append((f"perhead_attention_w{wpc}", "perhead_attention.cu",
                         f"benchmarks/mosaic_repros/{replaces}",
                         ph_launches[wpc], ph_err[wpc],
-                        ph[f"kernel wpc={wpc}"][0], ph["plain"][0], ph_bound))
+                        ph[f"kernel wpc={wpc}"][0], ph["plain"][0], ph_bound,
+                        None))
     ly = layer_results[300]
     kernels.append((
         "maxvit_layer_attention", "maxvit_layer_attention.cu",
         "benchmarks/mosaic_repros/repro_megakernel.py:283",
         layer_launches["maxvit_layer_attention"], layer_err,
         ly["kernel"][0], ly["plain"][0],
-        repro_mega.bound_ms(300, torch.bfloat16)))
-    # no single PyTorch call computes any of these functions (SDPA covers
-    # neither a projection, the l2 norm nor the repartition): library_ms
-    # stays null
+        repro_mega.bound_ms(300, torch.bfloat16), None))
+    # R4, R10 and R9 at the repro's Bw = 2,880, with R1's bound; R11's core
+    # on the staged operands, against SDPA, the one PyTorch call that
+    # computes its function (none computes the others': SDPA covers neither
+    # a projection, the l2 norm nor the repartition)
+    mosaic = "benchmarks/mosaic_repros/"
+    for route, source, replaces in (
+            ("headmajor_attention", "headmajor_attention.cu",
+             "repro_headmajor_batched.py:63"),
+            ("stacked_softmax_attention", "stacked_softmax_attention.cu",
+             "repro_stacked_softmax.py:64"),
+            ("perhead_weight_attention", "perhead_attention.cu",
+             "repro_perhead_weight_gemm.py:68")):
+        launches, results = variant_runs[route]
+        r = results[2880]
+        kernels.append((route, source, mosaic + replaces, launches[route],
+                        variant_err[route], r["kernel"][0], r["plain"][0],
+                        ph_bound, None))
+    launches, results = variant_runs["staged_attention_core"]
+    core = results[2880]["core"]
+    kernels.append((
+        "staged_attention_core", "staged_attention_core.cu",
+        mosaic + "repro_staged_headmajor.py:68",
+        launches["staged_attention_core"],
+        variant_err["staged_attention_core"], core["kernel"][0],
+        core["plain"][0],
+        repro_r11.core_bound_ms(2880, repro_perhead.N_PAD,
+                                repro_perhead.HEADS, repro_perhead.DIM_HEAD,
+                                torch.bfloat16), core["sdpa"][0]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-         "bound_by": bound[1], "library_ms": None}
-        for name, source, replaces, launches, e, ms, plain_ms, bound
+         "bound_by": bound[1], "library_ms": library}
+        for name, source, replaces, launches, e, ms, plain_ms, bound, library
         in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

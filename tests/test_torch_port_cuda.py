@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 GPU: the window-attention forward (with and without dropout), its backward,
 the dropout keep mask, the fused MBConv, the per-head attention of R1/R14
-and the MaxViT layer megakernel of R7.  Skips without a CUDA device.
+(and R9's route through it), the MaxViT layer megakernel of R7, and the
+kernels of R4 (head-major batched), R10 (stacked softmax) and R11 (staged
+core, and R11 whole).  Skips without a CUDA device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -10,7 +12,8 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
 f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
-the forward, as are R1/R14 and R7, whose second launches are bit-identical.
+the forward, as are R1/R14, R7, R4, R9, R10 and R11, whose second launches
+are bit-identical.
 The keep mask is bit-equal.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
@@ -311,3 +314,93 @@ def test_maxvit_layer_attention_rejects_maps_the_windows_do_not_tile():
     with pytest.raises(ValueError):
         av.maxvit_layer_attention(x[:, :40].contiguous(), r, ob, og,
                                   repro.WIN)
+
+
+VARIANT_ROUTES = ["headmajor_attention", "stacked_softmax_attention",
+                  "perhead_weight_attention", "staged_attention_core",
+                  "staged_attention"]
+
+
+@pytest.mark.parametrize("route", VARIANT_ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset", [
+    (40, 56, 128, 32, 32, 0.0),     # the repro's widths
+    (37, 56, 48, 3, 16, 0.0),       # a ragged last tile and head group
+    (5, 9, 32, 2, 64, 0.0),         # fewer windows than a tile, dim_head 64
+    (16, 56, 128, 32, 32, -200.0)])  # head 0 scores ~200 below head 1
+def test_variant_matches_plain(bw, n, dim, heads, dim_head, offset, dtype,
+                               route):
+    """R4, R10, R9's route, R11's core and R11 whole against their plain
+    versions (the routes of ``chip_smoke.variant_routes``)."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                 dim=dim, heads=heads, dim_head=dim_head)
+    bias[0] += offset
+    with torch.inference_mode():
+        kernel, plain = chip_smoke.variant_routes(x, wqkv, bias, heads,
+                                                  dim_head)[route]
+        ref = plain()
+        av.reset_launches()
+        ours = kernel()
+        again = kernel()
+    torch.cuda.synchronize()
+    counts = {"headmajor_attention": av.headmajor_launches,
+              "stacked_softmax_attention": av.stacked_launches,
+              "perhead_weight_attention": av.perhead_weight_launches,
+              "staged_attention_core": av.staged_core_launches,
+              "staged_attention": av.staged_core_launches}
+    assert counts[route] == 2
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, route)
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("heads_per_group", [1, 2, 3])
+def test_headmajor_attention_at_every_group(heads_per_group):
+    """R4's kernel at groups that do and do not divide 3 heads."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(11, torch.bfloat16, torch.device("cuda"), 2,
+                                 n=56, dim=48, heads=3, dim_head=16)
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, 3, 16)
+        ours = av.headmajor_attention(x, wqkv, bias, heads_per_group)
+        again = av.headmajor_attention(x, wqkv, bias, heads_per_group)
+    torch.cuda.synchronize()
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "headmajor")
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+def test_variants_reject_shapes_out_of_range():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        stage_headmajor)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    dev = torch.device("cuda")
+    x, wqkv, bias = repro.inputs(4, torch.float32, dev, 0, n=9, dim=32,
+                                 heads=2, dim_head=8)
+    for call in (lambda: av.headmajor_attention(x, wqkv, bias),
+                 lambda: av.stacked_softmax_attention(x, wqkv, bias),
+                 lambda: av.perhead_weight_attention(x, weight4(wqkv, 2),
+                                                     bias),
+                 lambda: av.headmajor_attention(x.half(), wqkv, bias),
+                 lambda: av.headmajor_attention(x, wqkv, bias, 3)):
+        with pytest.raises(ValueError):
+            call()
+    x, wqkv, bias = repro.inputs(4, torch.float32, dev, 0, n=72, dim=32,
+                                 heads=2, dim_head=16)
+    qn, kn, v = stage_headmajor(x @ wqkv, 2, 16, torch.float32)
+    for call in (lambda: av.staged_attention_core(qn, kn, v, bias),
+                 lambda: av.staged_attention_core(qn, kn.half(), v, bias),
+                 lambda: av.headmajor_attention(x, wqkv, bias)):
+        with pytest.raises(ValueError):
+            call()

@@ -14,7 +14,7 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 45, names
+assert len(names) >= 49, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -27,6 +27,10 @@ assert not bad, bad
 assert library._lib is None
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
 assert attention_variants.layer_launches == 0
+assert (attention_variants.headmajor_launches
+        == attention_variants.stacked_launches
+        == attention_variants.perhead_weight_launches
+        == attention_variants.staged_core_launches == 0)
 assert attention_variants.perhead_launches[8] == 0
 assert attention_variants.perhead_launches[16] == 0
 print(len(names))

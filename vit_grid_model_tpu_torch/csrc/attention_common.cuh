@@ -1,14 +1,16 @@
-// Device helpers shared by the window-attention forward
-// (window_attention_fwd.cu) and backward (window_attention_bwd.cu) kernels:
-// conversions between f32 and the activation type T (f32 or bf16), warp
-// reductions, and the wmma tile product their bf16 paths run the
-// projections on.
+// Device helpers shared by the attention kernels under csrc/: conversions
+// between f32 and the activation type T (f32 or bf16), warp reductions, the
+// wmma tile product the bf16 paths run the projections on, the cp.async
+// copies, the CUDA-core f32 product and the per-head steps (norm, scores,
+// softmax, P.v) of the per-head kernels, and a few query rows' attention
+// run by one warp (attend_rows).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include <cmath>
 #include <cstddef>
 #include <type_traits>
 
@@ -94,6 +96,247 @@ __device__ void wmma_mm(int M, int N, int K, const __nv_bfloat16* A,
     wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Start copying rows x cols of T from global (row stride lds) into shared
+// memory (row stride ldd), 16 bytes a thread at a time; one commit group.
+template <typename T>
+__device__ void copy_rows_async(T* dst, int ldd, const T* src, int lds,
+                                int rows, int cols) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int chunks = cols / kPer;
+  for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
+    const int r = e / chunks;
+    const int k = (e % chunks) * kPer;
+    cp_async16(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
+  }
+  cp_async_commit();
+}
+
+// C[r][c] = sum_k A[r][k] * B[k][c] for r < 64, c < N, k < K, all f32 in
+// shared memory.  Thread (ty, tx) of the 16 x 16 grid owns rows
+// 4ty..4ty+3 and columns tx + 16j of each 64-column pass.
+__device__ inline void gemm_smem_f32(const float* A, int lda,
+                                     const float* B, int ldb, float* C,
+                                     int ldc, int K, int N) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  for (int c0 = 0; c0 < N; c0 += 64) {
+    float acc[4][4] = {};
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * lda + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 16 * j;
+        b[j] = c < N ? B[k * ldb + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 16 * j;
+        if (c < N) C[(4 * ty + i) * ldc + c] = acc[i][j];
+      }
+  }
+  __syncthreads();
+}
+
+// The per-head steps of the 64-row q|k|v tiles of R1's and R10's kernels,
+// all f32 in shared memory, each ending in a block barrier.  q, k and v of
+// row r sit at qkv + r * ldq, + dh and + 2dh; a score tile holds 64 rows
+// kRows apart.  Thread (ty, tx) of the 16 x 16 grid owns rows 4ty..4ty+3.
+
+// q and k of rows < n scaled by rsqrt(max(sum^2, 1e-24)): a warp a vector.
+__device__ inline void l2_normalize_qk(float* qkv, int ldq, int n, int dh) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < 2 * n; t += kThreads / 32) {
+    float* vec = qkv + (t >> 1) * ldq + (t & 1) * dh;
+    float ss = 0.f;
+    for (int d = lane; d < dh; d += 32) ss += vec[d] * vec[d];
+    const float scale = rsqrtf(fmaxf(warp_sum(ss), 1e-24f));
+    for (int d = lane; d < dh; d += 32) vec[d] *= scale;
+  }
+  __syncthreads();
+}
+
+// s = q k^T + bias_h (bh: n x n); columns >= n (the 64-row padding) get
+// -1e30, rows >= n no bias.
+__device__ inline void scores_tile(const float* qkv, int ldq, int dh,
+                                   const float* bh, int n, float* s) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float acc[4][4] = {};
+  for (int d = 0; d < dh; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qkv[(4 * ty + i) * ldq + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = qkv[(tx + 16 * j) * ldq + dh + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * ty + i;
+      const int c = tx + 16 * j;
+      s[r * kRows + c] =
+          c >= n ? -1e30f : acc[i][j] + (r < n ? bh[r * n + c] : 0.f);
+    }
+  __syncthreads();
+}
+
+// Softmax of rows r < n of `tiles` consecutive score tiles, in one pass: a
+// warp a row.
+__device__ inline void softmax_rows(float* s, int tiles, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < tiles * n; t += kThreads / 32) {
+    float* sr = s + (static_cast<size_t>(t / n) * kRows + t % n) * kRows;
+    const float v0 = sr[lane];
+    const float v1 = sr[lane + 32];
+    const float m = warp_max(fmaxf(v0, v1));
+    const float e0 = expf(v0 - m);
+    const float e1 = expf(v1 - m);
+    const float den = warp_sum(e0 + e1);
+    sr[lane] = e0 / den;
+    sr[lane + 32] = e1 / den;
+  }
+  __syncthreads();
+}
+
+// out[r * ldo + d] = sum_j p[r][j] v[j][d] for r < n, d < dh (v rows ldv
+// apart), stored as T.  No barrier: it only reads the tiles.
+template <typename T>
+__device__ inline void pv_tile(const float* p, const float* v, int ldv,
+                               int n, int dh, T* out, size_t ldo) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  for (int d0 = 0; d0 < dh; d0 += 16) {
+    const int d = d0 + tx;
+    if (d >= dh) continue;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < n; ++j) {
+      const float vj = v[j * ldv + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] = fmaf(p[(4 * ty + i) * kRows + j], vj, acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      if (r < n) out[r * ldo + d] = from_f32<T>(acc[i]);
+    }
+  }
+}
+
+// Up to kRowsAtOnce query rows of one head's attention, run by one warp
+// with no block barrier: for each row i < rows (row i at q + i * qstep,
+// its bias at bias + i * bstep, its output at out + i * ostep)
+//   out[d] = sum_j softmax_j(q . k_j + bias[j]) v_j[d]
+// for j < n (n <= 64) and d < dh (a multiple of 16, <= 64), all in f32.
+// Lane l holds each row's scores of keys l and l + 32 in registers; the max
+// and the sum reduce by shuffles, and P.v takes each p_j from its lane by a
+// shuffle.  The rows run interleaved, so each key and v row read from
+// memory serves all of them and their dependency chains overlap.  q, k and
+// v are f32 in shared or device memory (k and v rows ldk and ldv apart;
+// every row 16-byte aligned).
+constexpr int kRowsAtOnce = 4;
+
+template <typename T>
+__device__ __forceinline__ void attend_rows(const float* q, size_t qstep,
+                                            int rows, const float* k,
+                                            int ldk, const float* v, int ldv,
+                                            const float* bias, size_t bstep,
+                                            int n, int dh, T* out,
+                                            size_t ostep) {
+  const int lane = threadIdx.x & 31;
+  const int j0 = lane;
+  const int j1 = lane + 32;
+  // keys >= n read key n - 1 and are dropped below
+  const float* k0 = k + min(j0, n - 1) * ldk;
+  const float* k1 = k + min(j1, n - 1) * ldk;
+  float s0[kRowsAtOnce], s1[kRowsAtOnce];
+#pragma unroll
+  for (int i = 0; i < kRowsAtOnce; ++i) s0[i] = s1[i] = 0.f;
+  for (int d = 0; d < dh; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(k0 + d);
+    const float4 b = *reinterpret_cast<const float4*>(k1 + d);
+#pragma unroll
+    for (int i = 0; i < kRowsAtOnce; ++i) {
+      // rows past `rows` repeat the last one and are not stored
+      const float4 qd = *reinterpret_cast<const float4*>(
+          q + min(i, rows - 1) * qstep + d);
+      s0[i] = fmaf(qd.x, a.x, s0[i]);
+      s0[i] = fmaf(qd.y, a.y, s0[i]);
+      s0[i] = fmaf(qd.z, a.z, s0[i]);
+      s0[i] = fmaf(qd.w, a.w, s0[i]);
+      s1[i] = fmaf(qd.x, b.x, s1[i]);
+      s1[i] = fmaf(qd.y, b.y, s1[i]);
+      s1[i] = fmaf(qd.z, b.z, s1[i]);
+      s1[i] = fmaf(qd.w, b.w, s1[i]);
+    }
+  }
+  // keys >= n take no part: -inf before the max, 0 after the exp
+  float p0[kRowsAtOnce], p1[kRowsAtOnce];
+#pragma unroll
+  for (int i = 0; i < kRowsAtOnce; ++i) {
+    const float* bi = bias + min(i, rows - 1) * bstep;
+    const float a = j0 < n ? s0[i] + bi[j0] : -INFINITY;
+    const float b = j1 < n ? s1[i] + bi[j1] : -INFINITY;
+    const float m = warp_max(fmaxf(a, b));
+    const float e0 = j0 < n ? expf(a - m) : 0.f;
+    const float e1 = j1 < n ? expf(b - m) : 0.f;
+    const float den = warp_sum(e0 + e1);
+    p0[i] = e0 / den;
+    p1[i] = e1 / den;
+  }
+  const bool has0 = lane < dh;
+  const bool has1 = lane + 32 < dh;
+  float acc0[kRowsAtOnce], acc1[kRowsAtOnce];
+#pragma unroll
+  for (int i = 0; i < kRowsAtOnce; ++i) acc0[i] = acc1[i] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float v0 = has0 ? v[j * ldv + lane] : 0.f;
+    const float v1 = has1 ? v[j * ldv + lane + 32] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowsAtOnce; ++i) {
+      const float pj = __shfl_sync(0xffffffffu, j < 32 ? p0[i] : p1[i],
+                                   j & 31);
+      acc0[i] = fmaf(pj, v0, acc0[i]);
+      acc1[i] = fmaf(pj, v1, acc1[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsAtOnce; ++i) {
+    if (i >= rows) break;
+    if (has0) out[i * ostep + lane] = from_f32<T>(acc0[i]);
+    if (has1) out[i * ostep + lane + 32] = from_f32<T>(acc1[i]);
+  }
 }
 
 }  // namespace

@@ -1,9 +1,11 @@
-// Per-head window attention for Hopper (sm_90a): R1 and R14.
+// Per-head window attention for Hopper (sm_90a): R9's structure, which
+// also runs R1 and R14.
 //
 // Replaces benchmarks/mosaic_repros/repro_baseline_perhead.py::kernel, its
-// pallas_call (:60) at 8 windows a program (R1) and the same call at 16
-// windows a program (repro_16window_tile.py, R14).  For each window w of
-// n <= 64 tokens and each head h, in f32:
+// pallas_call (:60) at 8 windows a program (R1), the same call at 16
+// windows a program (repro_16window_tile.py, R14), and
+// repro_perhead_weight_gemm.py::kernel (:27-55, pallas_call :68, R9).  For
+// each window w of n <= 64 tokens and each head h, in f32:
 //
 //   q | k | v = x_w . Wqkv_h                  (Wqkv_h: dim x 3dh)
 //   q <- q * rsqrt(max(sum q^2, 1e-24))       (same for k; no gain, no scale)
@@ -15,13 +17,20 @@
 // 6.42) and moves 14 KB in and 115 KB out, so it is bound by arithmetic:
 // 163.8 GFLOP = 0.166 ms at Bw = 2,880 against 0.111 ms for the bytes.
 //
-// What this design does about it.  The TPU kernel holds a tile of windows'
-// x and all of Wqkv in VMEM and runs one qkv product for the tile.  Here a
-// CTA of 256 threads owns `windows_per_cta` consecutive windows (8 for R1,
-// 16 for R14) and loops heads outside windows: each head's 128 x 96 weight
-// slice is staged in shared memory once and serves every window of the
-// CTA, which is what more windows a CTA buys.  Sixteen windows' x alone
-// (229,376 B in bf16) would fill the 232,448 B a block may have, so x is
+// What this design does about it.  R1's TPU kernel holds a tile of
+// windows' x and all of Wqkv in VMEM and runs one (R, dim) . (dim, 3hd)
+// qkv product for the tile, then slices its output by head.  That product
+// does not fit here even for one window: 56 x 3,072 is 688 KB in f32 and
+// 344 KB in bf16, against 227 KB of shared memory a block.  So this kernel
+// is R9's structure (repro_perhead_weight_gemm.py:27-41, the weight
+// pre-sliced by head at :67): one small (R, dim) . (dim, 3dh) product per
+// head on that head's weight slice, laid out (heads, dim, 3dh) by the
+// wrapper.  R1, R14 and R9 all run it.  A CTA of 256 threads owns
+// `windows_per_cta` consecutive windows (8 for R1 and R9, 16 for R14) and
+// loops heads outside windows: each head's 128 x 96 weight slice is staged
+// in shared memory once and serves every window of the CTA, which is what
+// more windows a CTA buys.  Sixteen windows' x alone (229,376 B in bf16)
+// would fill the 232,448 B a block may have, so x is
 // streamed: each (head, window) step copies that window's x from L2 with
 // cp.async into one of two buffers while the other is in use.  Shared
 // memory per CTA, at the repro's widths in bf16: two x buffers 2 x 17,408 B
@@ -29,7 +38,8 @@
 // 25,600 B (64 x 100), the scores 16,384 B: 103,424 B whatever the windows
 // a CTA, so two CTAs share an SM.  In bf16 the qkv product runs on the
 // tensor cores (wmma 16x16x16, f32 sums); the norms, scores, softmax and
-// P.v run in f32 on CUDA cores, as on the TPU.  f32 inputs run every
+// P.v run in f32 on CUDA cores, as on the TPU (attention_common.cuh's
+// per-head steps, shared with R10's kernel).  f32 inputs run every
 // product on CUDA-core FMAs (TF32 would not meet the f32 tolerance).  This
 // is the simple first version: wgmma, TMA and a tensor-core score path are
 // later work.
@@ -72,70 +82,6 @@ __host__ __device__ PerheadPlan make_perhead_plan(int dim, int dh) {
   return p;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Start copying rows x cols of T from global (row stride lds) into shared
-// memory (row stride ldd), 16 bytes a thread at a time; one commit group.
-template <typename T>
-__device__ void copy_rows_async(T* dst, int ldd, const T* src, int lds,
-                                int rows, int cols) {
-  constexpr int kPer = 16 / sizeof(T);
-  const int chunks = cols / kPer;
-  for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
-    const int r = e / chunks;
-    const int k = (e % chunks) * kPer;
-    cp_async16(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
-  }
-  cp_async_commit();
-}
-
-// C[r][c] = sum_k A[r][k] * B[k][c] for r < 64, c < N, k < K, all f32 in
-// shared memory.  Thread (ty, tx) of the 16 x 16 grid owns rows
-// 4ty..4ty+3 and columns tx + 16j of each 64-column pass.
-__device__ void gemm_smem_f32(const float* A, int lda, const float* B,
-                              int ldb, float* C, int ldc, int K, int N) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  for (int c0 = 0; c0 < N; c0 += 64) {
-    float acc[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
-        b[j] = c < N ? B[k * ldb + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < N) C[(4 * ty + i) * ldc + c] = acc[i][j];
-      }
-  }
-  __syncthreads();
-}
-
 template <typename T, bool kTC>
 __global__ void __launch_bounds__(kThreads, 2)
     perhead_attention_kernel(const T* __restrict__ x,
@@ -155,11 +101,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* s = reinterpret_cast<float*>(smem + plan.s);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
   const int w0 = blockIdx.x * windows_per_cta;
   const int nw = min(windows_per_cta, bw - w0);  // the last tile is ragged
   const int inner = heads * dh;
@@ -199,76 +140,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     else
       gemm_smem_f32(xw, ldx, ws, ldw, qkv, ldq, dim, 3 * dh);
 
-    // l2 norm of q and k: one warp per (row, q-or-k) vector
-    for (int t = warp; t < 2 * n; t += nwarps) {
-      float* vec = qkv + (t >> 1) * ldq + (t & 1) * dh;
-      float ss = 0.f;
-      for (int d = lane; d < dh; d += 32) ss += vec[d] * vec[d];
-      const float scale = rsqrtf(fmaxf(warp_sum(ss), 1e-24f));
-      for (int d = lane; d < dh; d += 32) vec[d] *= scale;
-    }
-    __syncthreads();
-
-    // S = q k^T + bias_h; columns >= n (the 64-row padding) get -1e30
-    const float* bh = bias + static_cast<size_t>(h) * n * n;
-    {
-      float acc[4][4] = {};
-      for (int d = 0; d < dh; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qkv[(4 * ty + i) * ldq + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = qkv[(tx + 16 * j) * ldq + dh + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = 4 * ty + i;
-          const int c = tx + 16 * j;
-          s[r * kRows + c] =
-              c >= n ? -1e30f : acc[i][j] + (r < n ? bh[r * n + c] : 0.f);
-        }
-    }
-    __syncthreads();
-
-    // softmax of the real rows, one warp per row
-    for (int r = warp; r < n; r += nwarps) {
-      float* sr = s + r * kRows;
-      const float v0 = sr[lane];
-      const float v1 = sr[lane + 32];
-      const float m = warp_max(fmaxf(v0, v1));
-      const float e0 = expf(v0 - m);
-      const float e1 = expf(v1 - m);
-      const float den = warp_sum(e0 + e1);
-      sr[lane] = e0 / den;
-      sr[lane + 32] = e1 / den;
-    }
-    __syncthreads();
-
-    // out[w, r, h*dh + d] = sum_j P[r][j] v[j][d]
-    T* ow = out + static_cast<size_t>(w) * n * inner + h * dh;
-    for (int d0 = 0; d0 < dh; d0 += 16) {
-      const int d = d0 + tx;
-      if (d >= dh) continue;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < n; ++j) {
-        const float vj = qkv[j * ldq + 2 * dh + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i] = fmaf(s[(4 * ty + i) * kRows + j], vj, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * ty + i;
-        if (r < n)
-          ow[static_cast<size_t>(r) * inner + d] = from_f32<T>(acc[i]);
-      }
-    }
+    // l2 norms; S = q k^T + bias_h; its softmax; out[w, r, h*dh + d] =
+    // sum_j P[r][j] v[j][d]
+    l2_normalize_qk(qkv, ldq, n, dh);
+    scores_tile(qkv, ldq, dh, bias + static_cast<size_t>(h) * n * n, n, s);
+    softmax_rows(s, 1, n);
+    pv_tile<T>(s, qkv + 2 * dh, ldq, n, dh,
+               out + static_cast<size_t>(w) * n * inner + h * dh, inner);
   }
 }
 

@@ -1,12 +1,20 @@
-"""Plain PyTorch versions of two TPU attention repros, the references that
+"""Plain PyTorch versions of the TPU attention repros, the references that
 the CUDA kernels of ``ops/cuda/attention_variants.py`` are held against and
 what those wrappers run for tensors on the CPU.
 
 * ``perhead_qkv_attention``: R1's function
-  (``benchmarks/mosaic_repros/repro_baseline_perhead.py:22-50``), which R14
-  (``repro_16window_tile.py``) runs at 16 windows a program: per head,
+  (``benchmarks/mosaic_repros/repro_baseline_perhead.py:22-50``): per head,
   l2-normalized q and k from one qkv product, bias, softmax, P.v; no
-  LayerNorm, FiLM, q/k gain or out-projection, no mask.
+  LayerNorm, FiLM, q/k gain or out-projection, no mask.  R14
+  (``repro_16window_tile.py``, R1 at 16 windows a program), R4
+  (``repro_headmajor_batched.py``), R9 (``repro_perhead_weight_gemm.py``)
+  and R10 (``repro_stacked_softmax.py``) compute the same function.
+* ``staged_headmajor_attention``: R11
+  (``repro_staged_headmajor.py:58-80``), R1's function with the repro's
+  rounding points: the qkv product, the l2 norm and a head-major layout
+  (``stage_headmajor``) outside the core, q, k and v cast to x's dtype,
+  then ``staged_headmajor_core`` (``:31-47``), whose P is cast to v's dtype
+  before P.v.  In f32 it equals ``perhead_qkv_attention``.
 * ``maxvit_layer_attention``: R7's function
   (``repro_megakernel.py:191-230``), one MaxViT layer's block attention,
   register mean and grid attention, built from ``ops/attention.py::
@@ -14,6 +22,8 @@ what those wrappers run for tensors on the CPU.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import Tensor
@@ -44,6 +54,44 @@ def perhead_qkv_attention(x: Tensor, wqkv: Tensor, bias: Tensor, heads: int,
     attn = (torch.matmul(q, k.transpose(-1, -2)) + bias.float()).softmax(-1)
     out = torch.matmul(attn, v).transpose(1, 2).reshape(bw, n, -1)
     return out.to(x.dtype)
+
+
+def stage_headmajor(qkv: Tensor, heads: int, dim_head: int,
+                    dtype: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
+    """R11's staging: qkv (Bw, n, 3 * heads * dim_head) f32 to l2-normalized
+    q and k, and v, each (heads, Bw, n, dim_head) in ``dtype``."""
+    bw, n, _ = qkv.shape
+    q, k, v = qkv.reshape(bw, n, 3, heads, dim_head).permute(2, 3, 0, 1, 4)
+    q = q * torch.rsqrt(q.square().sum(-1, keepdim=True).clamp(min=1e-24))
+    k = k * torch.rsqrt(k.square().sum(-1, keepdim=True).clamp(min=1e-24))
+    return (q.to(dtype).contiguous(), k.to(dtype).contiguous(),
+            v.to(dtype).contiguous())
+
+
+def unstage_headmajor(out: Tensor) -> Tensor:
+    """(heads, Bw, n, dim_head) back to (Bw, n, heads * dim_head)."""
+    heads, bw, n, dh = out.shape
+    return out.permute(1, 2, 0, 3).reshape(bw, n, heads * dh)
+
+
+def staged_headmajor_core(qn: Tensor, kn: Tensor, v: Tensor,
+                          bias: Tensor) -> Tensor:
+    """R11's core on head-major (heads, Bw, n, dim_head) operands and bias
+    (heads, n, n) f32: softmax(qn kn^T + bias_h), rounded to v's dtype,
+    times v.  Both products sum in f32; the result is in v's dtype."""
+    s = torch.matmul(qn.float(), kn.float().transpose(-1, -2))
+    attn = (s + bias.float()[:, None]).softmax(-1)
+    return torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def staged_headmajor_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
+                               heads: int, dim_head: int) -> Tensor:
+    """R11 whole: the arguments and result of ``perhead_qkv_attention``.
+    The qkv product has f32 results from x's dtype; q, k and v are staged
+    head-major in x's dtype, the core runs, and its result is laid back."""
+    qkv = torch.matmul(x.float(), wqkv.float())
+    qn, kn, v = stage_headmajor(qkv, heads, dim_head, x.dtype)
+    return unstage_headmajor(staged_headmajor_core(qn, kn, v, bias))
 
 
 def maxvit_layer_attention(x_map: Tensor, regs: Tensor, ops_block,

@@ -1,20 +1,32 @@
-"""Two TPU attention repros on the GPU: the wrappers of their hand-written
+"""The TPU attention repros on the GPU: the wrappers of their hand-written
 CUDA kernels under ``csrc/`` and their launch counters.
 
 * ``perhead_attention`` (``perhead_attention.cu``): R1, and R14 at 16
   windows a CTA;
+* ``perhead_weight_attention`` (the same kernel): R9, from its (3, heads,
+  dim, dim_head) weight;
+* ``headmajor_attention`` (``headmajor_attention.cu``): R4, a group of
+  heads' q|k|v at once, then a warp per query row;
+* ``stacked_softmax_attention`` (``stacked_softmax_attention.cu``): R10,
+  one softmax over a group of heads' stacked scores;
+* ``staged_attention_core`` (``staged_attention_core.cu``): R11's core on
+  head-major operands, and ``staged_attention``, R11 whole, whose staging
+  around the kernel is stock PyTorch (cuBLAS), as the repro leaves it to
+  XLA;
 * ``maxvit_layer_attention`` (``maxvit_layer_attention.cu``): R7, one
   MaxViT layer's block and grid attention in one cluster launch.
 
 Each takes the arguments of its plain version in ``ops/attention_variants.py``
-(plus ``windows_per_cta`` for R1).  For a tensor on the CPU it runs that
-plain version; for a CUDA tensor it launches the kernel or raises.  The
-kernels live in the library that ``ops/cuda/library.py`` builds.
+(plus the windows a CTA or heads a group, where the kernel has them).  For
+a tensor on the CPU it runs that plain version; for a CUDA tensor it
+launches the kernel or raises.  The kernels live in the library that
+``ops/cuda/library.py`` builds.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -23,16 +35,27 @@ from vit_grid_model_tpu_torch.ops import attention_variants as plain
 from vit_grid_model_tpu_torch.ops.cuda import library
 from vit_grid_model_tpu_torch.ops.cuda.attention import MAX_SMEM
 
+SM_SMEM = 233472       # shared memory of one SM (228 KB)
+RESERVED_SMEM = 1024   # what the runtime keeps of it for each resident CTA
+
 # Calls of each wrapper that launched its kernel since the counts were last
 # set to 0; the per-head kernel's by windows a CTA (8 is R1, 16 is R14).
 perhead_launches: Counter = Counter()
-layer_launches = 0     # R7
+perhead_weight_launches = 0   # R9, on the per-head kernel
+headmajor_launches = 0        # R4
+stacked_launches = 0          # R10
+staged_core_launches = 0      # R11's core
+layer_launches = 0            # R7
+
+WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
 
 def reset_launches() -> None:
-    global layer_launches
+    global perhead_weight_launches, headmajor_launches, stacked_launches
+    global staged_core_launches, layer_launches
     perhead_launches.clear()
-    layer_launches = 0
+    perhead_weight_launches = headmajor_launches = stacked_launches = 0
+    staged_core_launches = layer_launches = 0
 
 
 def _check_cuda(name: str, x: Tensor, dim: int) -> None:
@@ -54,42 +77,217 @@ def _check_operand(name: str, what: str, t: Tensor, shape, dtype,
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _check_widths(name: str, n: int, dim: int, dh: int) -> None:
+    if not (n <= 64 and dim % 16 == 0 and dh % 16 == 0 and dh <= 64):
+        raise ValueError(f"{name}: n={n} (<= 64), dim={dim} and dim_head="
+                         f"{dh} (multiples of 16, dim_head <= 64) out of the "
+                         "kernel's range")
+
+
+def _check_rows(name: str, x: Tensor, w_heads: Tensor, bias: Tensor):
+    """Checks x (Bw, n, dim), the per-head weights (heads, dim, 3dh) and
+    the bias of the per-head kernels; returns (Bw, n, dim, heads, dh)."""
+    _check_cuda(name, x, 3)
+    bw, n, dim = x.shape
+    heads = bias.shape[0]
+    dh = w_heads.shape[-1] // 3
+    _check_operand(name, "per-head weights", w_heads, (heads, dim, 3 * dh),
+                   x.dtype, x.device)
+    _check_operand(name, "bias", bias, (heads, n, n), torch.float32,
+                   x.device)
+    _check_widths(name, n, dim, dh)
+    return bw, n, dim, heads, dh
+
+
+def _per_head(wqkv: Tensor, heads: int) -> Tensor:
+    """R1's (dim, 3 * heads * dh) q | k | v weight as per-head slices
+    (heads, dim, 3 * dh): head h's q | k | v columns."""
+    if wqkv.dim() != 2 or wqkv.shape[1] % (3 * heads):
+        raise ValueError(f"wqkv {tuple(wqkv.shape)} is not (dim, 3 * "
+                         f"{heads} * dim_head)")
+    dim = wqkv.shape[0]
+    dh = wqkv.shape[1] // (3 * heads)
+    return (wqkv.reshape(dim, 3, heads, dh).permute(2, 0, 1, 3)
+            .reshape(heads, dim, 3 * dh).contiguous())
+
+
+def _launch_perhead(name: str, x: Tensor, w_heads: Tensor, bias: Tensor,
+                    windows_per_cta: int) -> Tensor:
+    bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
+    if windows_per_cta < 1:
+        raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = library.load()
+    if lib.vgm_perhead_attention_smem_bytes(dim, dh, is_bf16) > MAX_SMEM:
+        raise ValueError(f"{name}: dim={dim}, dim_head={dh} do not fit in "
+                         "shared memory")
+    out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
+    library.check(lib.vgm_perhead_attention(
+        x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), out.data_ptr(), bw,
+        n, dim, heads, dh, windows_per_cta, is_bf16, library.stream(x)), name)
+    return out
+
+
 def perhead_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
                       windows_per_cta: int) -> Tensor:
     """R1's per-head attention of (Bw, n, dim) ``x`` with ``wqkv`` (dim,
     3 * heads * dh) in R1's q | k | v layout and ``bias`` (heads, n, n) f32;
     each CTA runs ``windows_per_cta`` windows (8 is R1, 16 is R14)."""
     heads = bias.shape[0]
-    dh = wqkv.shape[1] // (3 * heads)
     if x.device.type == "cpu":
-        return plain.perhead_qkv_attention(x, wqkv, bias, heads, dh)
-    name = "perhead_attention"
-    _check_cuda(name, x, 3)
-    bw, n, dim = x.shape
-    _check_operand(name, "wqkv", wqkv, (dim, 3 * heads * dh), x.dtype,
-                   x.device)
-    _check_operand(name, "bias", bias, (heads, n, n), torch.float32,
-                   x.device)
-    if not (n <= 64 and dim % 16 == 0 and dh % 16 == 0 and dh <= 64
-            and windows_per_cta >= 1):
-        raise ValueError(f"{name}: n={n} (<= 64), dim={dim} and dim_head="
-                         f"{dh} (multiples of 16, dim_head <= 64), "
-                         f"windows_per_cta={windows_per_cta} (>= 1) out of "
-                         "the kernel's range")
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    lib = library.load()
-    if lib.vgm_perhead_attention_smem_bytes(dim, dh, is_bf16) > MAX_SMEM:
-        raise ValueError(f"{name}: dim={dim}, dim_head={dh} do not fit in "
-                         "shared memory")
-    # per-head weight slices (heads, dim, 3*dh): head h's q | k | v columns
-    w = (wqkv.reshape(dim, 3, heads, dh).permute(2, 0, 1, 3)
-         .reshape(heads, dim, 3 * dh).contiguous())
-    out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
-    library.check(lib.vgm_perhead_attention(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), bw, n,
-        dim, heads, dh, windows_per_cta, is_bf16, library.stream(x)), name)
+        return plain.perhead_qkv_attention(x, wqkv, bias, heads,
+                                           wqkv.shape[1] // (3 * heads))
+    out = _launch_perhead("perhead_attention", x, _per_head(wqkv, heads),
+                          bias, windows_per_cta)
     perhead_launches[windows_per_cta] += 1
     return out
+
+
+def perhead_weight_attention(x: Tensor, w4: Tensor, bias: Tensor) -> Tensor:
+    """R9: R1's function from the weight R9 hands its kernel, ``w4`` (3,
+    heads, dim, dh) = R1's wqkv split by (q|k|v, head).  It is rearranged
+    once into the per-head kernel's (heads, dim, 3 * dh) slices, which the
+    kernel runs at 8 windows a CTA: that kernel is R9's structure."""
+    _, heads, dim, dh = w4.shape
+    if x.device.type == "cpu":
+        return plain.perhead_qkv_attention(
+            x, w4.permute(2, 0, 1, 3).reshape(dim, 3 * heads * dh), bias,
+            heads, dh)
+    out = _launch_perhead(
+        "perhead_weight_attention", x,
+        w4.permute(1, 2, 0, 3).reshape(heads, dim, 3 * dh).contiguous(),
+        bias, WINDOWS_PER_CTA)
+    global perhead_weight_launches
+    perhead_weight_launches += 1
+    return out
+
+
+def _pick_group(smem_bytes, dim: int, dh: int, heads: int, is_bf16: int,
+                most: int, ctas_per_sm: int) -> int:
+    """The largest power of two <= ``most`` and <= heads of which
+    ``ctas_per_sm`` CTAs share an SM's shared memory; else the largest of
+    which one CTA fits (0 when not even one head does)."""
+    def largest(limit):
+        group = 1
+        while 2 * group <= min(most, heads):
+            group *= 2
+        while group and smem_bytes(dim, dh, group, is_bf16) > limit:
+            group //= 2
+        return group
+
+    return (largest(SM_SMEM // ctas_per_sm - RESERVED_SMEM)
+            or largest(MAX_SMEM))
+
+
+def _launch_grouped(name: str, entry: str, x: Tensor, wqkv: Tensor,
+                    bias: Tensor, heads_per_group: Optional[int], most: int,
+                    ctas_per_sm: int) -> Tensor:
+    """Launch R4's or R10's kernel (library entry ``entry``), ``heads_per_
+    group`` heads a step (default: ``_pick_group``), 8 windows a CTA."""
+    heads = bias.shape[0]
+    w_heads = _per_head(wqkv, heads)
+    bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = library.load()
+    smem_bytes = getattr(lib, entry + "_smem_bytes")
+    group = heads_per_group or _pick_group(smem_bytes, dim, dh, heads,
+                                           is_bf16, most, ctas_per_sm)
+    if not (1 <= group <= heads
+            and smem_bytes(dim, dh, group, is_bf16) <= MAX_SMEM):
+        raise ValueError(f"{name}: {group} heads of dim={dim}, dim_head={dh} "
+                         f"a group do not fit in shared memory or {heads} "
+                         "heads")
+    out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
+    library.check(getattr(lib, entry)(
+        x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), out.data_ptr(), bw,
+        n, dim, heads, dh, group, WINDOWS_PER_CTA, is_bf16,
+        library.stream(x)), name)
+    return out
+
+
+def headmajor_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
+                        heads_per_group: Optional[int] = None) -> Tensor:
+    """R4: R1's function (its arguments) with a group of heads' q|k|v
+    computed at once and stored head-major, then a warp per query row with
+    no block barrier between the group's heads.  Unless given, the group is
+    the largest (up to 2 heads) of which two CTAs share an SM, since the
+    kernel is latency-bound: 1 head in bf16 at the repro's widths, 2 in
+    f32, where no group lets two CTAs share an SM."""
+    heads = bias.shape[0]
+    if x.device.type == "cpu":
+        return plain.perhead_qkv_attention(x, wqkv, bias, heads,
+                                           wqkv.shape[1] // (3 * heads))
+    out = _launch_grouped("headmajor_attention", "vgm_headmajor_attention",
+                          x, wqkv, bias, heads_per_group, 2, 2)
+    global headmajor_launches
+    headmajor_launches += 1
+    return out
+
+
+def stacked_softmax_attention(x: Tensor, wqkv: Tensor,
+                              bias: Tensor) -> Tensor:
+    """R10: R1's function (its arguments) with one softmax pass over a group
+    of heads' stacked f32 scores; the group is the largest power of two
+    (up to 8 heads) that fits: 4 in bf16, 2 in f32 at the repro's
+    widths."""
+    heads = bias.shape[0]
+    if x.device.type == "cpu":
+        return plain.perhead_qkv_attention(x, wqkv, bias, heads,
+                                           wqkv.shape[1] // (3 * heads))
+    out = _launch_grouped("stacked_softmax_attention",
+                          "vgm_stacked_softmax_attention", x, wqkv, bias,
+                          None, 8, 1)
+    global stacked_launches
+    stacked_launches += 1
+    return out
+
+
+def staged_attention_core(qn: Tensor, kn: Tensor, v: Tensor,
+                          bias: Tensor) -> Tensor:
+    """R11's core on head-major (heads, Bw, n, dh) ``qn``, ``kn``, ``v`` and
+    ``bias`` (heads, n, n) f32; the result is (heads, Bw, n, dh) in v's
+    dtype."""
+    if qn.device.type == "cpu":
+        return plain.staged_headmajor_core(qn, kn, v, bias)
+    name = "staged_attention_core"
+    _check_cuda(name, qn, 4)
+    heads, bw, n, dh = qn.shape
+    for what, t in (("kn", kn), ("v", v)):
+        _check_operand(name, what, t, qn.shape, qn.dtype, qn.device)
+    _check_operand(name, "bias", bias, (heads, n, n), torch.float32,
+                   qn.device)
+    if not (n <= 64 and dh % 16 == 0 and dh <= 64):
+        raise ValueError(f"{name}: n={n} (<= 64) and dim_head={dh} (a "
+                         "multiple of 16, <= 64) out of the kernel's range")
+    out = torch.empty_like(qn)
+    library.check(library.load().vgm_staged_attention_core(
+        qn.data_ptr(), kn.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), heads, bw, n, dh, int(qn.dtype == torch.bfloat16),
+        library.stream(qn)), name)
+    global staged_core_launches
+    staged_core_launches += 1
+    return out
+
+
+def staged_attention(x: Tensor, wqkv: Tensor, bias: Tensor) -> Tensor:
+    """R11 whole, the arguments of R1: the qkv product with f32 results
+    (cuBLAS; ``torch.mm(..., out_dtype=torch.float32)`` for bf16 operands,
+    as ``preferred_element_type=f32``), the norm and the head-major layout
+    in stock PyTorch, then ``staged_attention_core`` and the layout back."""
+    heads = bias.shape[0]
+    dh = wqkv.shape[1] // (3 * heads)
+    if x.device.type == "cpu":
+        return plain.staged_headmajor_attention(x, wqkv, bias, heads, dh)
+    _check_cuda("staged_attention", x, 3)
+    bw, n, dim = x.shape
+    _check_operand("staged_attention", "wqkv", wqkv, (dim, 3 * heads * dh),
+                   x.dtype, x.device)
+    x2 = x.reshape(bw * n, dim)
+    qkv = (torch.mm(x2, wqkv, out_dtype=torch.float32)
+           if x.dtype == torch.bfloat16 else torch.mm(x2, wqkv))
+    qn, kn, v = plain.stage_headmajor(qkv.reshape(bw, n, -1), heads, dh,
+                                      x.dtype)
+    return plain.unstage_headmajor(staged_attention_core(qn, kn, v, bias))
 
 
 def maxvit_layer_attention(x_map: Tensor, regs: Tensor, ops_block,

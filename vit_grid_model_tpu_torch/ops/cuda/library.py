@@ -103,13 +103,24 @@ def load() -> ctypes.CDLL:
         lib.vgm_perhead_attention.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.vgm_maxvit_layer_attention.argtypes = ([ptr] * 17 + [i32] * 9
                                                    + [ptr])
+        lib.vgm_headmajor_attention.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.vgm_stacked_softmax_attention.argtypes = ([ptr] * 4 + [i32] * 8
+                                                      + [ptr])
+        lib.vgm_staged_attention_core.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
                    lib.vgm_dropout_keep_mask, lib.vgm_fused_mbconv,
                    lib.vgm_perhead_attention,
-                   lib.vgm_maxvit_layer_attention):
+                   lib.vgm_maxvit_layer_attention,
+                   lib.vgm_headmajor_attention,
+                   lib.vgm_stacked_softmax_attention,
+                   lib.vgm_staged_attention_core):
             fn.restype = ctypes.c_int
         lib.vgm_perhead_attention_smem_bytes.argtypes = [i32] * 3
         lib.vgm_perhead_attention_smem_bytes.restype = ctypes.c_long
+        for fn in (lib.vgm_headmajor_attention_smem_bytes,
+                   lib.vgm_stacked_softmax_attention_smem_bytes):
+            fn.argtypes = [i32] * 4
+            fn.restype = ctypes.c_long
         lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 7
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_active_clusters.argtypes = [i32] * 7

@@ -13,7 +13,9 @@ events, each with its max error relative to the plain version:
   perhead_attention`` at 8 and 16 windows a CTA.
 
 Inputs follow the repro's (standard-normal x and bias, wqkv x 0.05), drawn
-from a numpy seed.  Needs one CUDA device:
+from a numpy seed.  ``run`` and ``main`` take other kernels of R1's
+function: the R4, R9 and R10 repros time theirs with them, beside R1's
+kernel at 8 windows a CTA.  Needs one CUDA device:
 
     python -m vit_grid_model_tpu_torch.repros.baseline_perhead
 """
@@ -21,7 +23,7 @@ from a numpy seed.  Needs one CUDA device:
 from __future__ import annotations
 
 import json
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,10 @@ CASES = {"repro Bw=2,880 (eval B=8)": 2880,
 WINDOWS_PER_CTA = (8, 16)         # R1, R14
 # max|kernel - plain| / max|plain|
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# a kernel version: (x, wqkv, bias) -> the call to time, with any operand it
+# needs of its own prepared outside the timing
+Kernel = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                  Callable[[], torch.Tensor]]
 
 
 def inputs(bw: int, dtype: torch.dtype, device: torch.device, seed: int = 0,
@@ -69,35 +75,38 @@ def bound_ms(bw: int, n: int, dim: int, heads: int, dim_head: int,
     return common.bound_ms(ops, moved, dtype)
 
 
+def r1_kernel(windows_per_cta: int) -> Kernel:
+    """R1's kernel at ``windows_per_cta`` windows a CTA, as a ``Kernel``."""
+    return lambda x, wqkv, bias: (
+        lambda: perhead_attention(x, wqkv, bias, windows_per_cta))
+
+
+KERNELS: Dict[str, Kernel] = {f"kernel wpc={wpc}": r1_kernel(wpc)
+                              for wpc in WINDOWS_PER_CTA}
+
+
 def run(bw: int, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-        iters: int = 20) -> Dict[str, Tuple[float, float]]:
-    """Time the plain version and the kernel at 8 and 16 windows a CTA at
-    Bw = ``bw``: {name: (ms, max rel vs plain)}.  Raises when a kernel
-    misses ``TOLERANCE``."""
+        iters: int = 20, kernels: Dict[str, Kernel] = KERNELS
+        ) -> Dict[str, Tuple[float, float]]:
+    """Time the plain version and each of ``kernels`` (by default R1's at 8
+    and 16 windows a CTA) at Bw = ``bw``: {name: (ms, max rel vs plain)}.
+    Raises when a kernel misses ``TOLERANCE``."""
     dev = common.require_cuda()
     x, wqkv, bias = inputs(bw, dtype, dev, seed)
     versions = {"plain": lambda: perhead_qkv_attention(x, wqkv, bias, HEADS,
                                                        DIM_HEAD)}
-    for wpc in WINDOWS_PER_CTA:
-        versions[f"kernel wpc={wpc}"] = (
-            lambda wpc=wpc: perhead_attention(x, wqkv, bias, wpc))
-    out = {}
-    with torch.inference_mode():
-        ref = versions["plain"]()
-        for name, fn in versions.items():
-            out[name] = common.run_repro(
-                f"Bw={bw} {str(dtype).split('.')[-1]} {name}", fn, ref,
-                iters=iters)
-    del ref
-    torch.cuda.empty_cache()
-    for name, (_, rel) in out.items():
-        if name.startswith("kernel") and not rel <= TOLERANCE[dtype]:
-            raise AssertionError(f"Bw={bw} {name}: max rel {rel} above "
-                                 f"{TOLERANCE[dtype]}")
-    return out
+    versions.update({name: make(x, wqkv, bias)
+                     for name, make in kernels.items()})
+    return common.compare_and_time(f"Bw={bw} {str(dtype).split('.')[-1]}",
+                                   versions, TOLERANCE[dtype], iters=iters)
 
 
-def main() -> Dict[int, Dict[str, Tuple[float, float]]]:
+def main(kernels: Dict[str, Kernel] = KERNELS,
+         ratio: Tuple[str, str] = ("kernel wpc=16", "kernel wpc=8"),
+         iters: int = 20) -> Dict[int, Dict[str, Tuple[float, float]]]:
+    """Run ``kernels`` at both Bw cases, ``iters`` timed calls each, and
+    print each case's bound and the time ratio of the two ``ratio``
+    versions; the card line first and a JSON line of the times last."""
     common.require_cuda()
     card = common.card_line()
     print(f"card: {card}", flush=True)
@@ -105,12 +114,11 @@ def main() -> Dict[int, Dict[str, Tuple[float, float]]]:
     for label, bw in CASES.items():
         print(f"=== {label}: {N_PAD} tokens, dim {DIM}, {HEADS} heads x "
               f"{DIM_HEAD}, bf16 ===", flush=True)
-        results[bw] = run(bw)
+        results[bw] = run(bw, iters=iters, kernels=kernels)
         bound, by = bound_ms(bw, N_PAD, DIM, HEADS, DIM_HEAD, torch.bfloat16)
         r = results[bw]
-        print(f"bound {bound:.4f} ms ({by}); kernel wpc=16 / wpc=8 "
-              f"{r['kernel wpc=16'][0] / r['kernel wpc=8'][0]:.3f}",
-              flush=True)
+        print(f"bound {bound:.4f} ms ({by}); {ratio[0]} / {ratio[1]} "
+              f"{r[ratio[0]][0] / r[ratio[1]][0]:.3f}", flush=True)
     print(json.dumps({"card": card, "ms": {
         bw: {k: v[0] for k, v in r.items()} for bw, r in results.items()}}))
     return results

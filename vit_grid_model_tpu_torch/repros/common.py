@@ -108,3 +108,22 @@ def run_repro(name: str, fn: Callable[[], Tensor], ref: Tensor, *,
           f"{str(out.dtype).split('.')[-1]}, max rel vs plain {rel:.3e}",
           flush=True)
     return ms, rel
+
+
+def compare_and_time(label: str, versions: Dict[str, Callable[[], Tensor]],
+                     tolerance: float, *,
+                     iters: int = 20) -> Dict[str, Tuple[float, float]]:
+    """Time each of ``versions`` (the first is the plain reference) with
+    ``run_repro``: {name: (ms, max rel vs the first's output)}.  Raises when
+    a version other than the first misses ``tolerance``."""
+    with torch.inference_mode():
+        ref = next(iter(versions.values()))()
+        out = {name: run_repro(f"{label} {name}", fn, ref, iters=iters)
+               for name, fn in versions.items()}
+    del ref
+    torch.cuda.empty_cache()
+    for name, (_, rel) in list(out.items())[1:]:
+        if not rel <= tolerance:
+            raise AssertionError(f"{label} {name}: max rel {rel} above "
+                                 f"{tolerance}")
+    return out
