@@ -10,8 +10,9 @@ CPU, drives the ``--fast`` evaluation CLI over a synthetic data tree at
 batch 25, drives the ``--fast`` training CLI for 12 steps at batch 4, and
 drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
 repro (per-head attention at 8 and 16 windows a CTA), the R7 repro (one
-MaxViT layer's block and grid attention in one launch) and the repros of
-R1's variants R4, R10, R9 and R11.  Phases:
+MaxViT layer's block and grid attention in one launch), the repros of R1's
+variants R4, R10, R9, R11 and R3, and the repros of the out-projection
+family R12-R13, R2 and R8.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -48,7 +49,16 @@ R1's variants R4, R10, R9 and R11.  Phases:
    3 heads x 16, a diverging-score case in both types), bit-identical on a
    second launch; then the four repros' entry points, each of which must
    launch its kernel, with kernel, plain and R1-kernel times (R11 also the
-   core against SDPA).
+   core against SDPA);
+11. R3 and the out-projection family: R3's cross-head indicator-norm
+   kernel on phase 10's cases; the out-projection kernel's shipping
+   structure (ws_2pass_pwout) on the same cases, the other R12/R13
+   structures at Bw 2,880 in bf16 and Bw 40 in f32 (f32 output, held to
+   1e-4), R2's casts at Bw 2,880 and in the diverging cases, R8's six
+   (n_pad, kfold) cases at Bw 2,880, each bit-identical on a second launch;
+   then the four repros' entry points, each of which must launch its
+   kernel, with kernel, plain, R4-, R1- and unfused (R1's kernel + cuBLAS)
+   times.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -985,6 +995,116 @@ def variants_vs_plain(dev):
     return report
 
 
+def outproj_routes(x, wqkv, bias, wout, heads, dh, dtype_name, bw,
+                   diverging):
+    """Phase 11a's routes of the out-projection kernel on one input:
+    {name: (kernel call, plain call)}.  ``ws_2pass_pwout`` runs on every
+    case; the other R12/R13 variants on the repro's Bw 2,880 in bf16 and Bw
+    40 in f32; R2's casts on Bw 2,880 and the diverging cases.  f32 inputs
+    give an f32 output (held to 1e-4), bf16 the repros' bf16."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import bf16_mxu_operands as r2
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    out_dtype = getattr(torch, dtype_name)
+    w4 = weight4(wqkv, heads)
+    routes = {}
+
+    def add(name, w, two_pass, perhead, score=False, agg=False):
+        routes[name] = (
+            lambda: av.outproj_attention(
+                x, w, bias, wout, two_pass=two_pass, perhead_wout=perhead,
+                bf16_score=score, bf16_agg=agg, out_dtype=out_dtype),
+            lambda: plain.outproj_attention(
+                x, wqkv, bias, wout, heads, dh, bf16_score=score,
+                bf16_agg=agg, out_dtype=out_dtype))
+
+    add("ws_2pass_pwout", w4, True, True)
+    if (bw, dtype_name) in (VARIANT_CASES[0][1:2] + ("bfloat16",),
+                            (40, "float32")):
+        for name, (r9, two_pass, perhead) in ws.VARIANTS.items():
+            if name != "ws_2pass_pwout":
+                add(name, w4 if r9 else wqkv, two_pass, perhead)
+    if bw == VARIANT_CASES[0][1] or diverging:
+        for name, (score, agg) in r2.CASTS.items():
+            if score or agg:
+                add(name, w4, True, True, score, agg)
+    return routes
+
+
+def crosshead_outproj_vs_plain(dev):
+    """Phase 11a: R3's kernel and the out-projection kernel (R12, R13, R2's
+    casts, R8's n_pad and windows a CTA) against their plain versions.
+    Returns {route: max|kernel - plain|} at Bw 2,880 in bf16."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as r1
+    from vit_grid_model_tpu_torch.repros import npad_and_kfold as r8
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    report = {}
+    repro_bw = VARIANT_CASES[0][1]   # the repro's Bw 2,880
+
+    def check(label, route, kernel, ref_call, tol, bw):
+        ref = ref_call()
+        ours = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        err, scale = kernel_errors(ours, again, ref, f"{label} {route}")
+        print(f"{label} {route:30s}: max|d|={err:.3e} max|plain|={scale:.3e} "
+              f"rel={err / scale:.3e} (tol {tol:g}); second launch "
+              "bit-identical", flush=True)
+        if not err <= tol * scale:
+            raise AssertionError(f"{label} {route}: kernel differs from "
+                                 f"plain by {err}")
+        if bw == repro_bw:
+            report[route] = err
+
+    for name, bw, n, dim, heads, dh, dtype_name, offset in VARIANT_CASES:
+        dtype = getattr(torch, dtype_name)
+        x, wqkv, bias, wout = ws.inputs(bw, dtype, dev, SEED, n=n, dim=dim,
+                                        heads=heads, dim_head=dh,
+                                        out_dim=dim)
+        bias[0] += offset
+        label = f"{name:15s} {dtype_name:8s} Bw={bw:4d}"
+        tol = TOLERANCE[dtype_name]
+        with torch.inference_mode():
+            check(label, "crosshead_norm_attention",
+                  lambda: av.crosshead_norm_attention(x, wqkv, bias),
+                  lambda: plain.perhead_qkv_attention(x, wqkv, bias, heads,
+                                                      dh), tol, bw)
+            for route, (kernel, ref_call) in outproj_routes(
+                    x, wqkv, bias, wout, heads, dh, dtype_name, bw,
+                    offset != 0).items():
+                check(label, route, kernel, ref_call, tol, bw)
+        del x, wqkv, bias, wout
+        torch.cuda.empty_cache()
+    for n_pad in r8.N_PADS:
+        x, wqkv, bias, wout = ws.inputs(repro_bw, torch.bfloat16, dev, SEED,
+                                        n=n_pad)
+        w4 = weight4(wqkv)
+        with torch.inference_mode():
+            for k in r8.KFOLDS:
+                check(f"R8 n_pad={n_pad} bfloat16 Bw={repro_bw}",
+                      f"npad{n_pad}_kfold{k}",
+                      lambda: av.outproj_attention(
+                          x, w4, bias, wout, two_pass=True, perhead_wout=True,
+                          windows_per_cta=r8.BLK * k),
+                      lambda: plain.outproj_attention(
+                          x, wqkv, bias, wout, r1.HEADS, r1.DIM_HEAD),
+                      TOLERANCE["bfloat16"], repro_bw)
+        del x, wqkv, bias, wout, w4
+        torch.cuda.empty_cache()
+    return report
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection; the backward
@@ -1017,7 +1137,9 @@ def main() -> int:
         baseline_perhead as repro_perhead, fused_mbconv as repro,
         headmajor_batched as repro_r4, megakernel as repro_mega,
         perhead_weight_gemm as repro_r9, stacked_softmax as repro_r10,
-        staged_headmajor as repro_r11)
+        staged_headmajor as repro_r11, crosshead_rmsnorm_gemm as repro_r3,
+        weightsliced_variants as repro_ws, bf16_mxu_operands as repro_r2,
+        npad_and_kfold as repro_r8)
     from vit_grid_model_tpu_torch.repros.common import bound_ms, card_line
 
     dev = torch.device("cuda:0")
@@ -1104,6 +1226,28 @@ def main() -> int:
         variant_runs[route] = repro_path(module, [av],
                                          lambda: {route: count()})
 
+    phase("11a", "R3 and the out-projection kernel (R12, R13, R2, R8) vs "
+          "plain on the card")
+    outproj_err = crosshead_outproj_vs_plain(dev)
+
+    phase("11b", "R3, R12-R13, R2 and R8 paths: their repros")
+
+    def outproj_count(two_pass, perhead, score=False, agg=False, wpc=8):
+        return av.outproj_launches[(two_pass, perhead, score, agg, wpc)]
+
+    r3_launches, r3_results = repro_path(
+        repro_r3, [av],
+        lambda: {"crosshead_norm_attention": av.crosshead_launches})
+    ws_launches, ws_results = repro_path(repro_ws, [av], lambda: {
+        name: outproj_count(tp, pw)
+        for name, (_, tp, pw) in repro_ws.VARIANTS.items()})
+    r2_launches, r2_results = repro_path(repro_r2, [av], lambda: {
+        name: outproj_count(True, True, score, agg)
+        for name, (score, agg) in repro_r2.CASTS.items()})
+    r8_launches, r8_results = repro_path(repro_r8, [av], lambda: {
+        f"kfold={k}": outproj_count(True, True, wpc=repro_r8.BLK * k)
+        for k in repro_r8.KFOLDS})
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
     m_err, m_ms, mp_ms = mask_report
@@ -1182,6 +1326,43 @@ def main() -> int:
         repro_r11.core_bound_ms(2880, repro_perhead.N_PAD,
                                 repro_perhead.HEADS, repro_perhead.DIM_HEAD,
                                 torch.bfloat16), core["sdpa"][0]))
+    # R3 and the out-projection family at the repro's Bw = 2,880; no single
+    # PyTorch call computes their functions (SDPA has no qkv product, l2
+    # norm or out-projection), so none has a library time
+    r3 = r3_results[2880]
+    kernels.append((
+        "crosshead_norm_attention", "crosshead_norm_attention.cu",
+        mosaic + "repro_crosshead_rmsnorm_gemm.py:69",
+        r3_launches["crosshead_norm_attention"],
+        outproj_err["crosshead_norm_attention"], r3["kernel"][0],
+        r3["plain"][0], ph_bound, None))
+
+    def family_bound(n):
+        return repro_ws.bound_ms(2880, n, repro_perhead.DIM,
+                                 repro_perhead.HEADS, repro_perhead.DIM_HEAD,
+                                 repro_ws.OUT_DIM, torch.bfloat16)
+
+    ws_r, r2_r, r8_r = ws_results[2880], r2_results[2880], r8_results[2880]
+    for name, replaces, launches, err, ms, plain_ms, n in (
+            ("outproj_attention_baseline",
+             "repro_weightsliced_variants.py:140", ws_launches["baseline"],
+             outproj_err["baseline"], ws_r["baseline"][0],
+             ws_r["plain"][0], repro_perhead.N_PAD),
+            ("outproj_attention_ws_2pass_pwout",
+             "repro_weightsliced_variants.py:155",
+             ws_launches["ws_2pass_pwout"], outproj_err["ws_2pass_pwout"],
+             ws_r["ws_2pass_pwout"][0], ws_r["plain"][0],
+             repro_perhead.N_PAD),
+            ("outproj_attention_bf16_both", "repro_bf16_mxu_operands.py:94",
+             r2_launches["bf16_both"], outproj_err["bf16_both"],
+             r2_r["kernel bf16_both"][0], r2_r["plain bf16_both"][0],
+             repro_perhead.N_PAD),
+            ("outproj_attention_npad64_kfold2",
+             "repro_npad_and_kfold.py:88", r8_launches["kfold=2"],
+             outproj_err["npad64_kfold2"], r8_r[64]["kfold=2"][0],
+             r8_r[64]["plain"][0], 64)):
+        kernels.append((name, "outproj_attention.cu", mosaic + replaces,
+                        launches, err, ms, plain_ms, family_bound(n), None))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 GPU: the window-attention forward (with and without dropout), its backward,
 the dropout keep mask, the fused MBConv, the per-head attention of R1/R14
-(and R9's route through it), the MaxViT layer megakernel of R7, and the
-kernels of R4 (head-major batched), R10 (stacked softmax) and R11 (staged
-core, and R11 whole).  Skips without a CUDA device.
+(and R9's route through it), the MaxViT layer megakernel of R7, the
+kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
+core, and R11 whole) and R3 (cross-head indicator norm), and the
+out-projection kernel of R12, R13, R2 and R8.  Skips without a CUDA
+device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -12,8 +14,9 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
 f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
-the forward, as are R1/R14, R7, R4, R9, R10 and R11, whose second launches
-are bit-identical.
+the forward, as are R1/R14, R7, R4, R9, R10, R11, R3 and the out-projection
+kernel (whose f32 cases take an f32 output), whose second launches are
+bit-identical.
 The keep mask is bit-equal.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
@@ -404,3 +407,141 @@ def test_variants_reject_shapes_out_of_range():
                  lambda: av.headmajor_attention(x, wqkv, bias)):
         with pytest.raises(ValueError):
             call()
+
+
+# (Bw, n, dim, heads, dim_head, head-0 bias offset) of R3's and the
+# out-projection kernel's cases
+GROUP_CASES = [
+    (40, 56, 128, 32, 32, 0.0),     # the repro's widths
+    (37, 56, 48, 3, 16, 0.0),       # a ragged last tile and head group
+    (5, 9, 32, 2, 64, 0.0),         # fewer windows than a tile, dim_head 64
+    (16, 56, 128, 32, 32, -200.0)]  # head 0 scores ~200 below head 1
+
+
+@pytest.mark.parametrize("heads_per_group", [None, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset", GROUP_CASES)
+def test_crosshead_norm_attention_matches_plain(bw, n, dim, heads, dim_head,
+                                                offset, dtype,
+                                                heads_per_group):
+    """R3's kernel against R1's plain version, at its default group and at
+    2 heads a group."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                 dim=dim, heads=heads, dim_head=dim_head)
+    bias[0] += offset
+    before = av.crosshead_launches
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, heads, dim_head)
+        ours = av.crosshead_norm_attention(x, wqkv, bias, heads_per_group)
+        again = av.crosshead_norm_attention(x, wqkv, bias, heads_per_group)
+    torch.cuda.synchronize()
+    assert av.crosshead_launches == before + 2
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "crosshead")
+    assert err <= TOL[dtype] * scale, err
+
+
+# the out-projection kernel's structures: name -> (R9's weight, two_pass,
+# perhead_wout, bf16_score, bf16_agg)
+OUTPROJ_ROUTES = {
+    "baseline": (False, True, False, False, False),
+    "ws_1pass": (True, False, False, False, False),
+    "ws_2pass": (True, True, False, False, False),
+    "ws_1pass_pwout": (True, False, True, False, False),
+    "ws_2pass_pwout": (True, True, True, False, False),
+    "bf16_score": (True, True, True, True, False),
+    "bf16_agg": (True, True, True, False, True),
+    "bf16_both": (True, True, True, True, True)}
+
+
+def _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route,
+                  windows_per_cta=8):
+    """The out-projection kernel (two launches) against its plain version
+    with the route's casts; the output in x's dtype."""
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        outproj_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    x, wqkv, bias, wout = ws.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                    dim=dim, heads=heads, dim_head=dim_head,
+                                    out_dim=dim)
+    bias[0] += offset
+    r9, two_pass, perhead, score, agg = OUTPROJ_ROUTES[route]
+    w = weight4(wqkv, heads) if r9 else wqkv
+    key = (two_pass, perhead, score, agg, windows_per_cta)
+    before = av.outproj_launches[key]
+    with torch.inference_mode():
+        ref = outproj_attention(x, wqkv, bias, wout, heads, dim_head,
+                                bf16_score=score, bf16_agg=agg,
+                                out_dtype=dtype)
+        ours, again = (av.outproj_attention(
+            x, w, bias, wout, two_pass=two_pass, perhead_wout=perhead,
+            bf16_score=score, bf16_agg=agg, windows_per_cta=windows_per_cta,
+            out_dtype=dtype) for _ in range(2))
+    torch.cuda.synchronize()
+    assert av.outproj_launches[key] == before + 2
+    assert ours.dtype == dtype and tuple(ours.shape) == (bw, n, dim)
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, route)
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("route", list(OUTPROJ_ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset",
+                         GROUP_CASES + [(16, 64, 128, 32, 32, 0.0)])
+def test_outproj_attention_matches_plain(bw, n, dim, heads, dim_head, offset,
+                                         dtype, route):
+    """R12, R13's variants and R2's casts against the plain version, n 64
+    (R8's n_pad) among the cases."""
+    _need_cuda()
+    _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route)
+
+
+@pytest.mark.parametrize("n", [56, 64])
+@pytest.mark.parametrize("windows_per_cta", [8, 16, 32])
+def test_outproj_attention_at_r8_windows_per_cta(windows_per_cta, n):
+    """R8's kfold 1, 2, 4 as 8, 16, 32 windows a CTA; Bw 37 leaves a
+    ragged last CTA at each."""
+    _need_cuda()
+    _outproj_case(37, n, 128, 32, 32, 0.0, torch.bfloat16, "ws_2pass_pwout",
+                  windows_per_cta)
+
+
+def test_crosshead_and_outproj_reject_shapes_out_of_range():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+
+    dev = torch.device("cuda")
+
+    def outproj(x, wqkv, bias, wout, **kw):
+        return av.outproj_attention(x, wqkv, bias, wout, two_pass=True,
+                                    perhead_wout=True, **kw)
+
+    x, wqkv, bias, wout = ws.inputs(4, torch.float32, dev, 0, n=9, dim=32,
+                                    heads=2, dim_head=16, out_dim=32)
+    for call in (lambda: av.crosshead_norm_attention(x.half(), wqkv, bias),
+                 lambda: av.crosshead_norm_attention(x, wqkv, bias, 3),
+                 lambda: av.crosshead_norm_attention(x, wqkv, bias, 9),
+                 lambda: outproj(x.half(), wqkv, bias, wout),
+                 lambda: outproj(x, wqkv, bias, wout[..., :24].contiguous()),
+                 lambda: outproj(x, wqkv, bias, wout,
+                                 out_dtype=torch.float16),
+                 lambda: outproj(x, wqkv, bias, wout, windows_per_cta=0)):
+        with pytest.raises(ValueError):
+            call()
+    for n, dh in ((72, 16), (9, 8)):
+        x, wqkv, bias, wout = ws.inputs(4, torch.float32, dev, 0, n=n,
+                                        dim=32, heads=2, dim_head=dh,
+                                        out_dim=32)
+        for call in (lambda: av.crosshead_norm_attention(x, wqkv, bias),
+                     lambda: outproj(x, wqkv, bias, wout)):
+            with pytest.raises(ValueError):
+                call()

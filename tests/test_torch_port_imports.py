@@ -14,7 +14,7 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 49, names
+assert len(names) >= 53, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -1,5 +1,5 @@
-"""R4, R10, R9 and R11 (variants of R1's per-head attention) on the CPU: the
-port's plain versions (``ops/attention_variants.py``) and the wrappers of
+"""R4, R10, R9, R11 and R3 (variants of R1's per-head attention) on the CPU:
+the port's plain versions (``ops/attention_variants.py``) and the wrappers of
 ``ops/cuda/attention_variants.py`` on CPU tensors against the TPU repros
 run in Pallas TPU interpret mode, with ``benchmarks.mosaic_repros.common.BW``
 shrunk through monkeypatch (nothing in ``benchmarks/`` changes); R11's core
@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from benchmarks.mosaic_repros import common as RC
+from benchmarks.mosaic_repros import repro_crosshead_rmsnorm_gemm as R3
 from benchmarks.mosaic_repros import repro_headmajor_batched as R4
 from benchmarks.mosaic_repros import repro_perhead_weight_gemm as R9
 from benchmarks.mosaic_repros import repro_stacked_softmax as R10
@@ -70,10 +71,12 @@ def _r9_wrapper(x, wqkv, bias):
 @pytest.mark.parametrize("module,wrapper", [
     (R4, cuda_av.headmajor_attention),
     (R10, cuda_av.stacked_softmax_attention),
-    (R9, _r9_wrapper)], ids=["R4", "R10", "R9"])
+    (R9, _r9_wrapper),
+    (R3, cuda_av.crosshead_norm_attention)], ids=["R4", "R10", "R9", "R3"])
 def test_variant_matches_repro(monkeypatch, module, wrapper, dtype):
-    """R4, R10 and R9 compute R1's function: the plain version and the
-    wrapper on CPU tensors against the repro's own kernel."""
+    """R4, R10, R9 and R3 compute R1's function: the plain version and
+    the wrapper on CPU tensors against the repro's own kernel (R3's norms
+    through its block-indicator products)."""
     monkeypatch.setattr(RC, "BW", BW)
     (x, wqkv, bias), (xt, wt, bt) = _inputs(dtype)
     ref = _repro(module, dtype, x, wqkv, bias)
@@ -155,9 +158,11 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
                             dim=32, heads=3, dim_head=16)
     qn, kn, v = plain.stage_headmajor(xt @ wt, 3, 16, torch.float32)
     before = (cuda_av.headmajor_launches, cuda_av.stacked_launches,
-              cuda_av.perhead_weight_launches, cuda_av.staged_core_launches)
+              cuda_av.perhead_weight_launches, cuda_av.staged_core_launches,
+              cuda_av.crosshead_launches)
     ref = plain.perhead_qkv_attention(xt, wt, bt, 3, 16)
     for out in (cuda_av.headmajor_attention(xt, wt, bt),
+                cuda_av.crosshead_norm_attention(xt, wt, bt, 2),
                 cuda_av.stacked_softmax_attention(xt, wt, bt),
                 cuda_av.perhead_weight_attention(xt, rp9.weight4(wt, 3), bt),
                 cuda_av.staged_attention(xt, wt, bt)):
@@ -166,8 +171,8 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
                                plain.staged_headmajor_core(qn, kn, v, bt),
                                rtol=0, atol=0)
     assert (cuda_av.headmajor_launches, cuda_av.stacked_launches,
-            cuda_av.perhead_weight_launches,
-            cuda_av.staged_core_launches) == before
+            cuda_av.perhead_weight_launches, cuda_av.staged_core_launches,
+            cuda_av.crosshead_launches) == before
 
 
 @pytest.mark.parametrize("bw,ms", [(2880, 0.394), (9000, 1.233)])
@@ -184,3 +189,22 @@ def test_staged_whole_bound():
     and read and the output written (0.99 GB): 6.98 GB."""
     bound, by = rp11.staged_bound_ms(2880, 56, 128, 32, 32, torch.bfloat16)
     assert by == "bytes" and abs(bound - 2.083) < 0.001
+
+
+def test_r3_indicator_norm_is_the_per_head_norm():
+    """R3's block indicator (``:63-66``) turns the squared qkv's product
+    into each head's sum of squares: the indicator-normalized q and k equal
+    the per-head l2-normalized ones of ``stage_headmajor``."""
+    xt, wt, _ = rp1.inputs(2, torch.float32, torch.device("cpu"), 4, n=9,
+                           dim=32, heads=3, dim_head=16)
+    qkv = (xt @ wt).reshape(-1, 3 * 3 * 16)
+    ind = torch.zeros(3 * 3 * 16, 3 * 3)
+    for g in range(3 * 3):
+        ind[g * 16:(g + 1) * 16, g] = 1.0
+    inv = torch.rsqrt(torch.clamp(qkv.square() @ ind, min=1e-24))
+    normed = (qkv * (inv @ ind.T)).reshape(2, 9, 3, 3, 16)
+    qn, kn, _ = plain.stage_headmajor((xt @ wt), 3, 16, torch.float32)
+    torch.testing.assert_close(normed[:, :, 0].permute(2, 0, 1, 3), qn,
+                               rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(normed[:, :, 1].permute(2, 0, 1, 3), kn,
+                               rtol=1e-6, atol=1e-7)

@@ -1,9 +1,11 @@
 // Device helpers shared by the attention kernels under csrc/: conversions
 // between f32 and the activation type T (f32 or bf16), warp reductions, the
-// wmma tile product the bf16 paths run the projections on, the cp.async
-// copies, the CUDA-core f32 product and the per-head steps (norm, scores,
-// softmax, P.v) of the per-head kernels, and a few query rows' attention
-// run by one warp (attend_rows).
+// wmma tile product the bf16 paths run the projections on, the mma.sync
+// m16n8k16 bf16 fragments, the cp.async copies, the CUDA-core f32 product
+// and the per-head steps (norm, scores, softmax, P.v) of the per-head
+// kernels, a few query rows' attention run by one warp (attend_rows), and
+// the steps of the head-group kernels (R4's and R3's): a group's q|k|v
+// product and its attention.
 
 #pragma once
 
@@ -12,6 +14,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -98,6 +101,33 @@ __device__ void wmma_mm(int M, int N, int K, const __nv_bfloat16* A,
   __syncthreads();
 }
 
+// One m16n8k16 tensor-core step, c += a . b: bf16 operands in registers
+// (a: the 16 x 16 A fragment, b0/b1: the 16 x 8 B fragment), f32 sums.
+// Lane l = 4g + t holds A's rows g and g + 8, columns 2t, 2t + 1 (a[0],
+// a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); B's rows 2t, 2t + 1 (b0) and
+// 2t + 8, 2t + 9 (b1) of column g; C's rows g (c[0], c[1]) and g + 8 (c[2],
+// c[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (to nearest even), packed low first.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
@@ -114,10 +144,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start copying rows x cols of T from global (row stride lds) into shared
-// memory (row stride ldd), 16 bytes a thread at a time; one commit group.
+// memory (row stride ldd), 16 bytes a thread at a time; one commit group
+// (or none: then it joins the next copy's group).
 template <typename T>
 __device__ void copy_rows_async(T* dst, int ldd, const T* src, int lds,
-                                int rows, int cols) {
+                                int rows, int cols, bool commit = true) {
   constexpr int kPer = 16 / sizeof(T);
   const int chunks = cols / kPer;
   for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
@@ -125,19 +156,29 @@ __device__ void copy_rows_async(T* dst, int ldd, const T* src, int lds,
     const int k = (e % chunks) * kPer;
     cp_async16(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
   }
-  cp_async_commit();
+  if (commit) cp_async_commit();
 }
 
-// C[r][c] = sum_k A[r][k] * B[k][c] for r < 64, c < N, k < K, all f32 in
-// shared memory.  Thread (ty, tx) of the 16 x 16 grid owns rows
+// C[r][c] (+)= sum_k A[r][k] * B[k][c] for r < 64, c < N, k < K, all f32
+// in shared memory.  Thread (ty, tx) of the 16 x 16 grid owns rows
 // 4ty..4ty+3 and columns tx + 16j of each 64-column pass.
 __device__ inline void gemm_smem_f32(const float* A, int lda,
                                      const float* B, int ldb, float* C,
-                                     int ldc, int K, int N) {
+                                     int ldc, int K, int N,
+                                     bool accumulate = false) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   for (int c0 = 0; c0 < N; c0 += 64) {
     float acc[4][4] = {};
+    if (accumulate) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + tx + 16 * j;
+          if (c < N) acc[i][j] = C[(4 * ty + i) * ldc + c];
+        }
+    }
     for (int k = 0; k < K; ++k) {
       float a[4], b[4];
 #pragma unroll
@@ -336,6 +377,129 @@ __device__ __forceinline__ void attend_rows(const float* q, size_t qstep,
     if (i >= rows) break;
     if (has0) out[i * ostep + lane] = from_f32<T>(acc0[i]);
     if (has1) out[i * ostep + lane + 32] = from_f32<T>(acc1[i]);
+  }
+}
+
+// The steps of the head-group kernels (R4's headmajor_attention.cu and R3's
+// crosshead_norm_attention.cu): a CTA of kWarps warps computes a group of
+// heads' q|k|v for one window tile at once, then runs their attention.
+constexpr int kWarps = kThreads / 32;
+
+// C[16 x dh] = A[16 x dim] . B[dim x dh] for one warp: rows of A ldx
+// apart, of B ldw apart, of C ldc apart.  bf16 on the tensor cores.
+__device__ inline void unit_product(const __nv_bfloat16* A, int ldx,
+                                    const __nv_bfloat16* B, int ldw, float* C,
+                                    int ldc, int dim, int dh) {
+  namespace wmma = nvcuda::wmma;
+  for (int c0 = 0; c0 < dh; c0 += 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+    for (int k = 0; k < dim; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> b;
+      wmma::load_matrix_sync(a, A + k, ldx);
+      wmma::load_matrix_sync(b, B + static_cast<size_t>(k) * ldw + c0, ldw);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(C + c0, acc, ldc, wmma::mem_row_major);
+  }
+}
+
+// The same in f32 on CUDA cores: lane l owns columns l and l + 32 of the
+// 16 rows.
+__device__ inline void unit_product(const float* A, int ldx, const float* B,
+                                    int ldw, float* C, int ldc, int dim,
+                                    int dh) {
+  const int lane = threadIdx.x & 31;
+  const bool has0 = lane < dh;
+  const bool has1 = lane + 32 < dh;
+  float acc0[16] = {};
+  float acc1[16] = {};
+  for (int k = 0; k < dim; ++k) {
+    const float b0 = has0 ? B[k * ldw + lane] : 0.f;
+    const float b1 = has1 ? B[k * ldw + lane + 32] : 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float a = A[r * ldx + k];
+      acc0[r] = fmaf(a, b0, acc0[r]);
+      acc1[r] = fmaf(a, b1, acc1[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    if (has0) C[r * ldc + lane] = acc0[r];
+    if (has1) C[r * ldc + lane + 32] = acc1[r];
+  }
+}
+
+// Where a group's f32 q|k|v sits in shared memory: element d of row r of
+// part p (0 q, 1 k, 2 v) of the group's head g is at
+//   qkv[g * head + p * part + r * row + d].
+// R4 stores it head-major, (G, 3, 64, dh + 4); R3 row-major as the TPU's
+// (R, 3hd) tile restricted to the group, (64, 3 G dh + 4) with the group's
+// q columns, then its k columns, then its v columns.  row is a multiple of
+// 4 floats (16-byte rows for attend_rows' float4 reads and wmma's store).
+struct GroupLayout {
+  size_t head, part;
+  int row;
+};
+
+// Step 1: the group's q|k|v = x_w . [Wqkv_h for its gn heads] for the
+// first mtiles 16-row tiles, one warp per (row tile, head, part) unit; the
+// gn weight slices (dim x 3dh, rows ldw apart) sit wslice apart in ws.
+// With norm_in_warp (R4) the warp that stores a q or k tile l2-normalizes
+// its 16 rows itself after a __syncwarp, two lanes a row.  No block
+// barrier.
+template <typename T>
+__device__ void group_qkv(const T* xw, int ldx, const T* ws, size_t wslice,
+                          int ldw, float* qkv, const GroupLayout& L,
+                          int mtiles, int gn, int dim, int dh,
+                          bool norm_in_warp) {
+  const int lane = threadIdx.x & 31;
+  for (int u = threadIdx.x >> 5; u < mtiles * gn * 3; u += kWarps) {
+    const int mt = u % mtiles;
+    const int part = (u / mtiles) % 3;
+    const int g = u / (mtiles * 3);
+    float* c = qkv + g * L.head + part * L.part +
+               static_cast<size_t>(mt) * 16 * L.row;
+    unit_product(xw + mt * 16 * ldx, ldx, ws + g * wslice + part * dh, ldw,
+                 c, L.row, dim, dh);
+    if (norm_in_warp && part < 2) {  // lanes 2r, 2r + 1 split row r
+      __syncwarp();
+      const int half = dh / 2;
+      float* vec = c + (lane >> 1) * L.row + (lane & 1) * half;
+      float ss = 0.f;
+      for (int d = 0; d < half; ++d) ss = fmaf(vec[d], vec[d], ss);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      const float scale = rsqrtf(fmaxf(ss, 1e-24f));
+      for (int d = 0; d < half; ++d) vec[d] *= scale;
+    }
+  }
+}
+
+// Step 3: warp i runs query rows i, i + 8, ... of each of the group's gn
+// heads (the first is head h0), kRowsAtOnce of them interleaved
+// (attend_rows), into out_w, the window's (n, inner) output (head h at
+// columns h * dh).  No block barrier.
+template <typename T>
+__device__ void attend_group(const float* qkv, const GroupLayout& L, int gn,
+                             int h0, const float* bias, int n, int dh,
+                             T* out_w, int inner) {
+  const int warp = threadIdx.x >> 5;
+  for (int g = 0; g < gn; ++g) {
+    const int h = h0 + g;
+    const float* hq = qkv + g * L.head;
+    for (int r = warp; r < n; r += kRowsAtOnce * kWarps)
+      attend_rows<T>(hq + static_cast<size_t>(r) * L.row,
+                     static_cast<size_t>(kWarps) * L.row,
+                     min(kRowsAtOnce, (n - r + kWarps - 1) / kWarps),
+                     hq + L.part, L.row, hq + 2 * L.part, L.row,
+                     bias + (static_cast<size_t>(h) * n + r) * n,
+                     static_cast<size_t>(kWarps) * n, n, dh,
+                     out_w + static_cast<size_t>(r) * inner + h * dh,
+                     static_cast<size_t>(kWarps) * inner);
   }
 }
 

@@ -35,7 +35,9 @@
 //      its rows alone, four interleaved (attend_rows: a row's 56 scores in
 //      registers, two a lane, max and sum by shuffles).
 // Two block barriers a step, one before and one after the product, and
-// none between the heads of a group: R1's kernel runs five a head.
+// none between the heads of a group: R1's kernel runs five a head.  Steps 1
+// and 2 are attention_common.cuh's group_qkv and attend_group, which R3's
+// kernel (crosshead_norm_attention.cu) shares with its own norm between.
 // Shared memory at the repro's widths in bf16: two x buffers 2 x 17,408 B,
 // G weight slices of 26,624 B and G q|k|v of 27,648 B: 89,088 B at G = 1,
 // two CTAs an SM (the wrapper's pick), and 143,360 B at G = 2, one.  In
@@ -49,7 +51,6 @@
 namespace {
 
 constexpr int kMaxDimHead = 64;
-constexpr int kWarps = kThreads / 32;
 
 struct HeadmajorPlan {
   int ldx, ldw, ldh;
@@ -81,54 +82,6 @@ __host__ __device__ HeadmajorPlan make_headmajor_plan(int dim, int dh,
   return p;
 }
 
-// C[16 x dh] = A[16 x dim] . B[dim x dh] for one warp: rows of A ldx
-// apart, of B ldw apart, of C ldh apart.  bf16 on the tensor cores.
-__device__ void unit_product(const __nv_bfloat16* A, int ldx,
-                             const __nv_bfloat16* B, int ldw, float* C,
-                             int ldh, int dim, int dh) {
-  namespace wmma = nvcuda::wmma;
-  for (int c0 = 0; c0 < dh; c0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < dim; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + k, ldx);
-      wmma::load_matrix_sync(b, B + static_cast<size_t>(k) * ldw + c0, ldw);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + c0, acc, ldh, wmma::mem_row_major);
-  }
-}
-
-// The same in f32 on CUDA cores: lane l owns columns l and l + 32 of the
-// 16 rows.
-__device__ void unit_product(const float* A, int ldx, const float* B,
-                             int ldw, float* C, int ldh, int dim, int dh) {
-  const int lane = threadIdx.x & 31;
-  const bool has0 = lane < dh;
-  const bool has1 = lane + 32 < dh;
-  float acc0[16] = {};
-  float acc1[16] = {};
-  for (int k = 0; k < dim; ++k) {
-    const float b0 = has0 ? B[k * ldw + lane] : 0.f;
-    const float b1 = has1 ? B[k * ldw + lane + 32] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float a = A[r * ldx + k];
-      acc0[r] = fmaf(a, b0, acc0[r]);
-      acc1[r] = fmaf(a, b1, acc1[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    if (has0) C[r * ldh + lane] = acc0[r];
-    if (has1) C[r * ldh + lane + 32] = acc1[r];
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     headmajor_attention_kernel(const T* __restrict__ x,
@@ -148,8 +101,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* qkv = reinterpret_cast<float*>(smem + plan.qkv);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int w0 = blockIdx.x * windows_per_cta;
   const int nw = min(windows_per_cta, bw - w0);  // the last tile is ragged
   const int inner = heads * dh;
@@ -157,6 +108,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int mtiles = (n + 15) / 16;
   const size_t wslice = static_cast<size_t>(dim) * ldw;  // one head's slice
   const size_t hblock = static_cast<size_t>(kRows) * ldh;  // one q, k or v
+  const GroupLayout layout{3 * hblock, hblock, ldh};
 
   // rows n..63 of both x buffers stay zero: the copies write rows < n only,
   // so the padded rows of q, k and v come out zero
@@ -190,42 +142,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // x and the weights are in; the last step is done
 
-    // the group's q|k|v, head-major: unit (row tile, head, part) per warp;
-    // q and k tiles are l2-normalized by the warp that stored them
-    for (int u = warp; u < mtiles * gn * 3; u += kWarps) {
-      const int mt = u % mtiles;
-      const int part = (u / mtiles) % 3;
-      const int g = u / (mtiles * 3);
-      float* c = qkv + (g * 3 + part) * hblock + mt * 16 * ldh;
-      unit_product(xw + mt * 16 * ldx, ldx, ws + g * wslice + part * dh, ldw,
-                   c, ldh, dim, dh);
-      if (part < 2) {  // lanes 2r and 2r + 1 split row r in halves
-        __syncwarp();
-        const int half = dh / 2;
-        float* vec = c + (lane >> 1) * ldh + (lane & 1) * half;
-        float ss = 0.f;
-        for (int d = 0; d < half; ++d) ss = fmaf(vec[d], vec[d], ss);
-        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-        const float scale = rsqrtf(fmaxf(ss, 1e-24f));
-        for (int d = 0; d < half; ++d) vec[d] *= scale;
-      }
-    }
+    // the group's q|k|v, head-major, each q or k tile l2-normalized by the
+    // warp that stored it
+    group_qkv(xw, ldx, ws, wslice, ldw, qkv, layout, mtiles, gn, dim, dh,
+              true);
     __syncthreads();  // q|k|v of the group are in
 
     // warp i runs query rows i, i + 8, ... of every head of the group,
     // kRowsAtOnce of them interleaved
-    for (int g = 0; g < gn; ++g) {
-      const int h = h0 + g;
-      const float* hq = qkv + g * 3 * hblock;
-      for (int r = warp; r < n; r += kRowsAtOnce * kWarps)
-        attend_rows<T>(hq + r * ldh, kWarps * ldh,
-                       min(kRowsAtOnce, (n - r + kWarps - 1) / kWarps),
-                       hq + hblock, ldh, hq + 2 * hblock, ldh,
-                       bias + (static_cast<size_t>(h) * n + r) * n,
-                       static_cast<size_t>(kWarps) * n, n, dh,
-                       out + (static_cast<size_t>(w) * n + r) * inner + h * dh,
-                       static_cast<size_t>(kWarps) * inner);
-    }
+    attend_group<T>(qkv, layout, gn, h0, bias, n, dh,
+                    out + static_cast<size_t>(w) * n * inner, inner);
   }
 }
 

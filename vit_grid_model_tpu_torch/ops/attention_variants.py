@@ -6,9 +6,13 @@ what those wrappers run for tensors on the CPU.
   (``benchmarks/mosaic_repros/repro_baseline_perhead.py:22-50``): per head,
   l2-normalized q and k from one qkv product, bias, softmax, P.v; no
   LayerNorm, FiLM, q/k gain or out-projection, no mask.  R14
-  (``repro_16window_tile.py``, R1 at 16 windows a program), R4
+  (``repro_16window_tile.py``, R1 at 16 windows a program), R3
+  (``repro_crosshead_rmsnorm_gemm.py``), R4
   (``repro_headmajor_batched.py``), R9 (``repro_perhead_weight_gemm.py``)
   and R10 (``repro_stacked_softmax.py``) compute the same function.
+* ``outproj_attention``: R1's function followed by an out-projection, with
+  the rounding points of R12 and R13 (``repro_weightsliced_variants.py``),
+  R2 (``repro_bf16_mxu_operands.py``) and R8 (``repro_npad_and_kfold.py``).
 * ``staged_headmajor_attention``: R11
   (``repro_staged_headmajor.py:58-80``), R1's function with the repro's
   rounding points: the qkv product, the l2 norm and a head-major layout
@@ -35,25 +39,58 @@ from vit_grid_model_tpu_torch.ops.window import (block_partition,
 
 
 def perhead_qkv_attention(x: Tensor, wqkv: Tensor, bias: Tensor, heads: int,
-                          dim_head: int) -> Tensor:
+                          dim_head: int, *, bf16_score: bool = False,
+                          bf16_agg: bool = False) -> Tensor:
     """x (Bw, n, dim); wqkv (dim, 3 * heads * dim_head), q | k | v column
     blocks, each head-major; bias (heads, n, n) f32.  Returns (Bw, n,
     heads * dim_head) in x's dtype: head h's columns are
     ``softmax(l2n(x Wq_h) l2n(x Wk_h)^T + bias_h) (x Wv_h)`` with
     ``l2n(q) = q * rsqrt(max(sum q^2, 1e-24))``.  The qkv product sums in
-    f32, and everything after it is f32."""
+    f32, and everything after it is f32, except R2's casts: with
+    ``bf16_score`` the normalized q and k, with ``bf16_agg`` P and v, are
+    rounded to x's dtype before their product."""
     bw, n, _ = x.shape
     qkv = torch.matmul(x.float(), wqkv.float())
 
     def heads_of(t):
         return t.reshape(bw, n, heads, dim_head).transpose(1, 2)
 
+    def cast(t, flag):
+        return t.to(x.dtype).float() if flag else t
+
     q, k, v = map(heads_of, qkv.chunk(3, dim=-1))
     q = q * torch.rsqrt(q.square().sum(-1, keepdim=True).clamp(min=1e-24))
     k = k * torch.rsqrt(k.square().sum(-1, keepdim=True).clamp(min=1e-24))
-    attn = (torch.matmul(q, k.transpose(-1, -2)) + bias.float()).softmax(-1)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(bw, n, -1)
-    return out.to(x.dtype)
+    s = torch.matmul(cast(q, bf16_score),
+                     cast(k, bf16_score).transpose(-1, -2))
+    attn = (s + bias.float()).softmax(-1)
+    out = torch.matmul(cast(attn, bf16_agg), cast(v, bf16_agg))
+    return out.transpose(1, 2).reshape(bw, n, -1).to(x.dtype)
+
+
+def outproj_attention(x: Tensor, wqkv: Tensor, bias: Tensor, wout: Tensor,
+                      heads: int, dim_head: int, *, bf16_score: bool = False,
+                      bf16_agg: bool = False,
+                      out_dtype: torch.dtype = torch.bfloat16) -> Tensor:
+    """x, wqkv, bias and the casts as ``perhead_qkv_attention``; wout
+    (heads * dim_head, out_dim) or (heads, dim_head, out_dim).  Returns
+    (Bw, n, out_dim) in ``out_dtype`` (bf16 by default, as the repros'
+    outputs are whatever x's dtype):
+
+        y = sum_h o_h . Wout_h,   o_h = perhead_qkv_attention's head h
+
+    with the repros' rounding points: each head's output rounded to x's
+    dtype before the out-projection, whose sums are f32.
+
+    One function for the whole family: one pass over the heads or two, and
+    the head outputs concatenated into one product or one product a head
+    summed in f32, give it up to the order of the f32 sums, so R12, R13's
+    four variants, R2's four casts and R8's (n_pad, kfold) cases all share
+    this one plain version."""
+    o = perhead_qkv_attention(x, wqkv, bias, heads, dim_head,
+                              bf16_score=bf16_score, bf16_agg=bf16_agg)
+    y = torch.matmul(o.float(), wout.reshape(heads * dim_head, -1).float())
+    return y.to(out_dtype)
 
 
 def stage_headmajor(qkv: Tensor, heads: int, dim_head: int,

@@ -14,7 +14,13 @@ CUDA kernels under ``csrc/`` and their launch counters.
   around the kernel is stock PyTorch (cuBLAS), as the repro leaves it to
   XLA;
 * ``maxvit_layer_attention`` (``maxvit_layer_attention.cu``): R7, one
-  MaxViT layer's block and grid attention in one cluster launch.
+  MaxViT layer's block and grid attention in one cluster launch;
+* ``crosshead_norm_attention`` (``crosshead_norm_attention.cu``): R3, R4's
+  structure with a group's q/k norms from one product with a 0/1
+  indicator;
+* ``outproj_attention`` (``outproj_attention.cu``): R12, R13, R2 and R8,
+  R1's function plus the out-projection, with the pass, out-projection,
+  cast, windows-a-CTA and n choices at run time.
 
 Each takes the arguments of its plain version in ``ops/attention_variants.py``
 (plus the windows a CTA or heads a group, where the kernel has them).  For
@@ -46,16 +52,21 @@ headmajor_launches = 0        # R4
 stacked_launches = 0          # R10
 staged_core_launches = 0      # R11's core
 layer_launches = 0            # R7
+crosshead_launches = 0        # R3
+# R12, R13, R2 and R8's kernel, by (two_pass, perhead_wout, bf16_score,
+# bf16_agg, windows_per_cta)
+outproj_launches: Counter = Counter()
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
 
 def reset_launches() -> None:
     global perhead_weight_launches, headmajor_launches, stacked_launches
-    global staged_core_launches, layer_launches
+    global staged_core_launches, layer_launches, crosshead_launches
     perhead_launches.clear()
+    outproj_launches.clear()
     perhead_weight_launches = headmajor_launches = stacked_launches = 0
-    staged_core_launches = layer_launches = 0
+    staged_core_launches = layer_launches = crosshead_launches = 0
 
 
 def _check_cuda(name: str, x: Tensor, dim: int) -> None:
@@ -333,4 +344,120 @@ def maxvit_layer_attention(x_map: Tensor, regs: Tensor, ops_block,
         name)
     global layer_launches
     layer_launches += 1
+    return out
+
+
+MAX_GROUP = 8   # heads a group of R3's indicator or of a two-pass stack
+
+
+def crosshead_norm_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
+                             heads_per_group: Optional[int] = None) -> Tensor:
+    """R3: R1's function (its arguments) on R4's structure, with each
+    group's q and k norms from one product of their squares with a 0/1
+    indicator.  Unless given, the group is R4's pick (the largest, up to 2
+    heads, of which two CTAs share an SM): 1 head in bf16 at the repro's
+    widths, 2 in f32."""
+    heads = bias.shape[0]
+    if x.device.type == "cpu":
+        return plain.perhead_qkv_attention(x, wqkv, bias, heads,
+                                           wqkv.shape[1] // (3 * heads))
+    if heads_per_group is not None and heads_per_group > MAX_GROUP:
+        raise ValueError(f"crosshead_norm_attention: {heads_per_group} heads "
+                         f"a group (<= {MAX_GROUP})")
+    out = _launch_grouped("crosshead_norm_attention",
+                          "vgm_crosshead_norm_attention", x, wqkv, bias,
+                          heads_per_group, 2, 2)
+    global crosshead_launches
+    crosshead_launches += 1
+    return out
+
+
+def _pick_outproj(smem_bytes, dim: int, dh: int, out_dim: int, heads: int,
+                  is_bf16: int, two_pass: bool, perhead_wout: bool):
+    """(heads a two-pass stack, heads a concat product) of the out-
+    projection kernel: the stack the largest power of two up to 2 heads (as
+    R4's pick; 0 for one pass), then the concat the largest power of two up
+    to every head (0 for a per-head out-projection), that fit one CTA's
+    shared memory; None when nothing fits."""
+    def fits(group, cat):
+        return smem_bytes(dim, dh, out_dim, group, cat, is_bf16) <= MAX_SMEM
+
+    def largest(most, ok):
+        v = 1
+        while 2 * v <= most:
+            v *= 2
+        while v and not ok(v):
+            v //= 2
+        return v
+
+    group = (largest(min(2, heads), lambda g: fits(g, 0 if perhead_wout
+                                                   else 1))
+             if two_pass else 0)
+    if two_pass and not group:
+        return None
+    if perhead_wout:
+        return (group, 0) if fits(group, 0) else None
+    cat = largest(heads, lambda c: fits(group, c))
+    return (group, cat) if cat else None
+
+
+def outproj_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
+                      two_pass: bool, perhead_wout: bool,
+                      bf16_score: bool = False, bf16_agg: bool = False,
+                      windows_per_cta: int = WINDOWS_PER_CTA,
+                      out_dtype: torch.dtype = torch.bfloat16) -> Tensor:
+    """R12, R13, R2 and R8: R1's attention of (Bw, n, dim) ``x`` with
+    ``bias`` (heads, n, n) f32, then the out-projection, as
+    ``ops/attention_variants.py::outproj_attention``.  ``w`` is R1's (dim,
+    3 * heads * dh) wqkv or R9's (3, heads, dim, dh) ``w4``; ``wout`` is
+    (heads * dh, out_dim) or (heads, dh, out_dim).  Each is laid out once
+    into the kernel's per-head slices.  ``two_pass``: every head's scores of
+    a group first, then one softmax and P.v; ``perhead_wout``: one product
+    a head summed in f32, else the concat of the head outputs; the casts as
+    R2's; ``windows_per_cta`` as R8's 8 * kfold.  Returns (Bw, n, out_dim)
+    in ``out_dtype``."""
+    heads = bias.shape[0]
+    if w.dim() == 4:
+        _, _, dim, dh = w.shape
+        wqkv = w.permute(2, 0, 1, 3).reshape(dim, 3 * heads * dh)
+        w_heads = w.permute(1, 2, 0, 3).reshape(heads, dim, 3 * dh)
+    else:
+        dim, dh = w.shape[0], w.shape[1] // (3 * heads)
+        wqkv, w_heads = w, None
+    if x.device.type == "cpu":
+        return plain.outproj_attention(
+            x, wqkv, bias, wout, heads, dh, bf16_score=bf16_score,
+            bf16_agg=bf16_agg, out_dtype=out_dtype)
+    name = "outproj_attention"
+    w_heads = (_per_head(w, heads) if w_heads is None
+               else w_heads.contiguous())
+    bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
+    if wout.numel() % (heads * dh):
+        raise ValueError(f"{name}: wout {tuple(wout.shape)} is not ({heads} "
+                         f"* {dh}, out_dim)")
+    wout2 = wout.reshape(heads * dh, -1).contiguous()
+    out_dim = wout2.shape[1]
+    _check_operand(name, "wout", wout2, (heads * dh, out_dim), x.dtype,
+                   x.device)
+    if out_dim % 16 or out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dim={out_dim} (a multiple of 16) or "
+                         f"out_dtype {out_dtype} (f32 or bf16) out of range")
+    if windows_per_cta < 1:
+        raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = library.load()
+    picked = _pick_outproj(lib.vgm_outproj_attention_smem_bytes, dim, dh,
+                           out_dim, heads, is_bf16, two_pass, perhead_wout)
+    if picked is None:
+        raise ValueError(f"{name}: dim={dim}, dim_head={dh}, out_dim="
+                         f"{out_dim} do not fit in shared memory")
+    group, cat = picked
+    out = torch.empty(bw, n, out_dim, dtype=out_dtype, device=x.device)
+    library.check(lib.vgm_outproj_attention(
+        x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), wout2.data_ptr(),
+        out.data_ptr(), bw, n, dim, heads, dh, out_dim, group, cat,
+        int(bf16_score), int(bf16_agg), windows_per_cta, is_bf16,
+        int(out_dtype == torch.bfloat16), library.stream(x)), name)
+    outproj_launches[(two_pass, perhead_wout, bf16_score, bf16_agg,
+                      windows_per_cta)] += 1
     return out
