@@ -11,8 +11,8 @@ batch 25, drives the ``--fast`` training CLI for 12 steps at batch 4, and
 drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
 repro (per-head attention at 8 and 16 windows a CTA), the R7 repro (one
 MaxViT layer's block and grid attention in one launch), the repros of R1's
-variants R4, R10, R9, R11 and R3, and the repros of the out-projection
-family R12-R13, R2 and R8.  Phases:
+variants R4, R10, R9, R11 and R3, the repros of the out-projection
+family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -58,7 +58,13 @@ family R12-R13, R2 and R8.  Phases:
    (n_pad, kfold) cases at Bw 2,880, each bit-identical on a second launch;
    then the four repros' entry points, each of which must launch its
    kernel, with kernel, plain, R4-, R1- and unfused (R1's kernel + cuBLAS)
-   times.
+   times;
+12. R5 and R6: the head-pack kernel at K = 2, 4 and 8 heads a pack, one
+   pass and two, 8 and 16 windows a CTA, vs plain (bf16 at Bw 2,880, f32
+   with an f32 output, a ragged Bw, every odd head's scores 200 below in
+   both types), bit-identical on a second launch; then the two repros'
+   entry points, each of which must launch the kernel at every K it runs,
+   with kernel, plain, out-projection-kernel and unfused times.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -840,7 +846,7 @@ def perhead_vs_plain(dev):
 
 
 def repro_path(module, wrappers, counts):
-    """Phases 7b, 8b, 9b and 10b: a repro's entry point, the launch counts of
+    """Phases 7b-12b: a repro's entry point, the launch counts of
     its kernels' wrapper modules set to 0 just before it.  Returns (the
     counts ``counts()`` reads just after, the repro's results); raises when
     one of them is 0."""
@@ -1105,6 +1111,71 @@ def crosshead_outproj_vs_plain(dev):
     return report
 
 
+# R5 and R6 comparison cases: (name, Bw, dtype, odd heads' bias offset); Bw
+# 37 leaves a ragged last tile at 8 and at 16 windows a CTA, and -200 puts
+# every odd head's scores ~200 below its even partner's, where the repros'
+# joint max gives NaN
+HEADPACK_CASES = [
+    ("repro Bw=2,880", 2880, "bfloat16", 0.0),
+    ("f32 Bw=40", 40, "float32", 0.0),
+    ("ragged Bw=37", 37, "bfloat16", 0.0),
+    ("diverging", 40, "bfloat16", -200.0),
+    ("diverging", 40, "float32", -200.0),
+]
+HEADPACK_K = (2, 4, 8)   # R5's pair, R6's quad and oct
+
+
+def headpack_vs_plain(dev):
+    """Phase 12a: R5/R6's head-pack kernel against the plain version at K =
+    2, 4 and 8 heads a pack, in one pass and two, at 8 and 16 windows a CTA;
+    f32 inputs give an f32 output (held to 1e-4), bf16 the repros' bf16.
+    Returns {K: max|kernel - plain|} at Bw 2,880 in bf16, two passes, 8
+    windows a CTA (the repros' main build)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as r1
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+
+    report = {}
+    for name, bw, dtype_name, offset in HEADPACK_CASES:
+        dtype = getattr(torch, dtype_name)
+        x, wqkv, bias, wout = ws.inputs(bw, dtype, dev, SEED)
+        bias[1::2] += offset
+        tol = TOLERANCE[dtype_name]
+        with torch.inference_mode():
+            ref = plain.outproj_attention(x, wqkv, bias, wout, r1.HEADS,
+                                          r1.DIM_HEAD, out_dtype=dtype)
+            for k in HEADPACK_K:
+                for two_pass in (True, False):
+                    for wpc in (8, 16):
+                        def call():
+                            return av.headpack_attention(
+                                x, wqkv, bias, wout, k_pack=k,
+                                two_pass=two_pass, windows_per_cta=wpc,
+                                out_dtype=dtype)
+
+                        ours, again = call(), call()
+                        torch.cuda.synchronize()
+                        what = (f"{name:15s} {dtype_name:8s} Bw={bw:4d} K={k} "
+                                f"{'2' if two_pass else '1'}pass wpc={wpc:2d}")
+                        err, scale = kernel_errors(ours, again, ref, what)
+                        print(f"{what}: max|d|={err:.3e} max|plain|="
+                              f"{scale:.3e} rel={err / scale:.3e} (tol "
+                              f"{tol:g}); second launch bit-identical",
+                              flush=True)
+                        if not err <= tol * scale:
+                            raise AssertionError(f"{what}: kernel differs "
+                                                 f"from plain by {err}")
+                        if (bw, two_pass, wpc) == (2880, True, 8):
+                            report[k] = err
+                        del ours, again
+        del x, wqkv, bias, wout, ref
+        torch.cuda.empty_cache()
+    return report
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection; the backward
@@ -1139,7 +1210,8 @@ def main() -> int:
         perhead_weight_gemm as repro_r9, stacked_softmax as repro_r10,
         staged_headmajor as repro_r11, crosshead_rmsnorm_gemm as repro_r3,
         weightsliced_variants as repro_ws, bf16_mxu_operands as repro_r2,
-        npad_and_kfold as repro_r8)
+        npad_and_kfold as repro_r8, headpair_lanepack as repro_r5,
+        headquad_lanepack as repro_r6)
     from vit_grid_model_tpu_torch.repros.common import bound_ms, card_line
 
     dev = torch.device("cuda:0")
@@ -1247,6 +1319,21 @@ def main() -> int:
     r8_launches, r8_results = repro_path(repro_r8, [av], lambda: {
         f"kfold={k}": outproj_count(True, True, wpc=repro_r8.BLK * k)
         for k in repro_r8.KFOLDS})
+
+    phase("12a", "R5/R6 head-pack kernel vs plain on the card")
+    headpack_err = headpack_vs_plain(dev)
+
+    phase("12b", "R5 and R6 paths: their repros")
+
+    def headpack_count(k):
+        return sum(v for (kk, _, _), v in av.headpack_launches.items()
+                   if kk == k)
+
+    r5_launches, r5_results = repro_path(
+        repro_r5, [av], lambda: {"K=2": headpack_count(2)})
+    r6_launches, r6_results = repro_path(
+        repro_r6, [av], lambda: {f"K={k}": headpack_count(k)
+                                 for k in HEADPACK_K})
 
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
@@ -1363,6 +1450,20 @@ def main() -> int:
              r8_r[64]["plain"][0], 64)):
         kernels.append((name, "outproj_attention.cu", mosaic + replaces,
                         launches, err, ms, plain_ms, family_bound(n), None))
+    # R5 and R6 at the repro's Bw = 2,880, two passes, 8 windows a CTA; the
+    # out-projection family's bound and (no) library call
+    r5_r, r6_r = r5_results[2880], r6_results[2880]
+    for k, replaces, launches, r, version in (
+            (2, "repro_headpair_lanepack.py:139", r5_launches["K=2"], r5_r,
+             "pair_2pass_w8"),
+            (4, "repro_headquad_lanepack.py:129", r6_launches["K=4"], r6_r,
+             "quad_2pass_w8"),
+            (8, "repro_headquad_lanepack.py:129", r6_launches["K=8"], r6_r,
+             "oct_2pass_w8")):
+        kernels.append((f"headpack_attention_k{k}", "headpack_attention.cu",
+                        mosaic + replaces, launches, headpack_err[k],
+                        r[version][0], r["plain"][0],
+                        repro_r5.bound_ms(2880), None))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,

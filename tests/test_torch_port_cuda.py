@@ -3,9 +3,9 @@ GPU: the window-attention forward (with and without dropout), its backward,
 the dropout keep mask, the fused MBConv, the per-head attention of R1/R14
 (and R9's route through it), the MaxViT layer megakernel of R7, the
 kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
-core, and R11 whole) and R3 (cross-head indicator norm), and the
-out-projection kernel of R12, R13, R2 and R8.  Skips without a CUDA
-device.
+core, and R11 whole) and R3 (cross-head indicator norm), the
+out-projection kernel of R12, R13, R2 and R8, and the head-pack kernel of
+R5 and R6.  Skips without a CUDA device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -14,9 +14,9 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
 f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
-the forward, as are R1/R14, R7, R4, R9, R10, R11, R3 and the out-projection
-kernel (whose f32 cases take an f32 output), whose second launches are
-bit-identical.
+the forward, as are R1/R14, R7, R4, R9, R10, R11, R3, the out-projection
+kernel and the head-pack kernel (whose f32 cases take an f32 output), whose
+second launches are bit-identical.
 The keep mask is bit-equal.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
@@ -545,3 +545,90 @@ def test_crosshead_and_outproj_reject_shapes_out_of_range():
                      lambda: outproj(x, wqkv, bias, wout)):
             with pytest.raises(ValueError):
                 call()
+
+
+# (Bw, n, dim, heads, dim_head, odd heads' bias offset) of R5's and R6's
+# kernel cases
+HEADPACK_CASES = [
+    (40, 56, 128, 32, 32, 0.0),     # the repros' widths
+    (5, 9, 32, 8, 64, 0.0),         # fewer windows than a tile, dim_head 64
+    (16, 56, 128, 32, 32, -200.0)]  # odd heads' scores ~200 below even's
+
+
+def _headpack_case(bw, n, dim, heads, dim_head, offset, dtype, k_pack,
+                   two_pass, windows_per_cta=8, r9_weight=False):
+    """R5/R6's kernel (two launches) against the plain version; the output
+    in x's dtype."""
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        outproj_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    x, wqkv, bias, wout = ws.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                    dim=dim, heads=heads, dim_head=dim_head,
+                                    out_dim=dim)
+    bias[1::2] += offset
+    w = weight4(wqkv, heads) if r9_weight else wqkv
+    key = (k_pack, two_pass, windows_per_cta)
+    before = av.headpack_launches[key]
+    with torch.inference_mode():
+        ref = outproj_attention(x, wqkv, bias, wout, heads, dim_head,
+                                out_dtype=dtype)
+        ours, again = (av.headpack_attention(
+            x, w, bias, wout, k_pack=k_pack, two_pass=two_pass,
+            windows_per_cta=windows_per_cta, out_dtype=dtype)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert av.headpack_launches[key] == before + 2
+    assert ours.dtype == dtype and tuple(ours.shape) == (bw, n, dim)
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "headpack")
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("two_pass", [True, False])
+@pytest.mark.parametrize("k_pack", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset", HEADPACK_CASES)
+def test_headpack_attention_matches_plain(bw, n, dim, heads, dim_head,
+                                          offset, dtype, k_pack, two_pass):
+    """K = 2 (R5), 4 and 8 (R6) in one pass and two, against the plain
+    version, a per-head row max on the diverging case."""
+    _need_cuda()
+    _headpack_case(bw, n, dim, heads, dim_head, offset, dtype, k_pack,
+                   two_pass)
+
+
+@pytest.mark.parametrize("windows_per_cta", [8, 16])
+@pytest.mark.parametrize("two_pass", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_headpack_attention_odd_number_of_packs(dtype, two_pass,
+                                                windows_per_cta):
+    """6 heads in 3 packs of 2, from R9's weight; Bw 37 leaves a ragged last
+    CTA at 8 and at 16 windows a CTA."""
+    _need_cuda()
+    _headpack_case(37, 56, 48, 6, 16, 0.0, dtype, 2, two_pass,
+                   windows_per_cta, r9_weight=True)
+
+
+def test_headpack_attention_rejects_what_it_cannot_run():
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+
+    x, wqkv, bias, wout = ws.inputs(4, torch.bfloat16, torch.device("cuda"),
+                                    0)
+
+    def headpack(x, wout, k_pack=4, **kw):
+        return av.headpack_attention(x, wqkv, bias, wout, k_pack=k_pack,
+                                     two_pass=True, **kw)
+
+    for call in (lambda: headpack(x, wout, 3),
+                 lambda: headpack(x, wout, 16),
+                 lambda: headpack(x.half(), wout),
+                 lambda: headpack(x, wout[..., :24].contiguous()),
+                 lambda: headpack(x, wout.float()),
+                 lambda: headpack(x, wout.cpu()),
+                 lambda: headpack(x, wout, windows_per_cta=0)):
+        with pytest.raises(ValueError):
+            call()

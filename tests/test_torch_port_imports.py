@@ -30,9 +30,12 @@ assert attention_variants.layer_launches == 0
 assert (attention_variants.headmajor_launches
         == attention_variants.stacked_launches
         == attention_variants.perhead_weight_launches
-        == attention_variants.staged_core_launches == 0)
+        == attention_variants.staged_core_launches
+        == attention_variants.crosshead_launches == 0)
 assert attention_variants.perhead_launches[8] == 0
 assert attention_variants.perhead_launches[16] == 0
+assert sum(attention_variants.outproj_launches.values()) == 0
+assert sum(attention_variants.headpack_launches.values()) == 0
 print(len(names))
 """
 

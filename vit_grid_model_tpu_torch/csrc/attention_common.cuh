@@ -252,12 +252,13 @@ __device__ inline void scores_tile(const float* qkv, int ldq, int dh,
   __syncthreads();
 }
 
-// Softmax of rows r < n of `tiles` consecutive score tiles, in one pass: a
-// warp a row.
-__device__ inline void softmax_rows(float* s, int tiles, int n) {
+// Softmax of rows r < n of `tiles` score tiles, `stride` floats apart, in
+// one pass: a warp a row.
+__device__ inline void softmax_rows(float* s, int tiles, int n,
+                                    size_t stride = kRows * kRows) {
   const int lane = threadIdx.x & 31;
   for (int t = threadIdx.x >> 5; t < tiles * n; t += kThreads / 32) {
-    float* sr = s + (static_cast<size_t>(t / n) * kRows + t % n) * kRows;
+    float* sr = s + (t / n) * stride + (t % n) * kRows;
     const float v0 = sr[lane];
     const float v1 = sr[lane + 32];
     const float m = warp_max(fmaxf(v0, v1));

@@ -13,6 +13,13 @@ what those wrappers run for tensors on the CPU.
 * ``outproj_attention``: R1's function followed by an out-projection, with
   the rounding points of R12 and R13 (``repro_weightsliced_variants.py``),
   R2 (``repro_bf16_mxu_operands.py``) and R8 (``repro_npad_and_kfold.py``).
+  R5 (``repro_headpair_lanepack.py``) and R6 (``repro_headquad_lanepack.py``)
+  compute its function at its default rounding points too: f32 sums from
+  x's dtype, each head's output rounded to x's dtype before the
+  out-projection (``:113`` and ``:104``), a bf16 output.  The repros shift
+  a pack of K heads' softmax by one joint row max, which underflows to 0/0
+  when one head's row lies ~87 below another's; this version shifts each
+  head by its own row max.
 * ``staged_headmajor_attention``: R11
   (``repro_staged_headmajor.py:58-80``), R1's function with the repro's
   rounding points: the qkv product, the l2 norm and a head-major layout
@@ -86,7 +93,7 @@ def outproj_attention(x: Tensor, wqkv: Tensor, bias: Tensor, wout: Tensor,
     the head outputs concatenated into one product or one product a head
     summed in f32, give it up to the order of the f32 sums, so R12, R13's
     four variants, R2's four casts and R8's (n_pad, kfold) cases all share
-    this one plain version."""
+    this one plain version, and so do R5's and R6's packs of K heads."""
     o = perhead_qkv_attention(x, wqkv, bias, heads, dim_head,
                               bf16_score=bf16_score, bf16_agg=bf16_agg)
     y = torch.matmul(o.float(), wout.reshape(heads * dim_head, -1).float())

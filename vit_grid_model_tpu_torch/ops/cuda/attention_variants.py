@@ -20,7 +20,10 @@ CUDA kernels under ``csrc/`` and their launch counters.
   indicator;
 * ``outproj_attention`` (``outproj_attention.cu``): R12, R13, R2 and R8,
   R1's function plus the out-projection, with the pass, out-projection,
-  cast, windows-a-CTA and n choices at run time.
+  cast, windows-a-CTA and n choices at run time;
+* ``headpack_attention`` (``headpack_attention.cu``): R5 and R6, the same
+  function with a pack of K heads' q|k|v from one product and one
+  out-projection a pack.
 
 Each takes the arguments of its plain version in ``ops/attention_variants.py``
 (plus the windows a CTA or heads a group, where the kernel has them).  For
@@ -56,6 +59,8 @@ crosshead_launches = 0        # R3
 # R12, R13, R2 and R8's kernel, by (two_pass, perhead_wout, bf16_score,
 # bf16_agg, windows_per_cta)
 outproj_launches: Counter = Counter()
+# R5 and R6's kernel, by (k_pack, two_pass, windows_per_cta)
+headpack_launches: Counter = Counter()
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
@@ -65,6 +70,7 @@ def reset_launches() -> None:
     global staged_core_launches, layer_launches, crosshead_launches
     perhead_launches.clear()
     outproj_launches.clear()
+    headpack_launches.clear()
     perhead_weight_launches = headmajor_launches = stacked_launches = 0
     staged_core_launches = layer_launches = crosshead_launches = 0
 
@@ -460,4 +466,86 @@ def outproj_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
         int(out_dtype == torch.bfloat16), library.stream(x)), name)
     outproj_launches[(two_pass, perhead_wout, bf16_score, bf16_agg,
                       windows_per_cta)] += 1
+    return out
+
+
+def _pick_sub_pack(smem_bytes, dim: int, dh: int, out_dim: int, k_pack: int,
+                   two_pass: bool, is_bf16: int) -> int:
+    """The most heads of a pack whose q|k|v fit one CTA's shared memory
+    beside x, y and the pack's outputs: the largest divisor of ``k_pack``
+    that fits (0 when not even one head does)."""
+    for sub in range(k_pack, 0, -1):
+        if (k_pack % sub == 0 and smem_bytes(dim, dh, out_dim, k_pack, sub,
+                                             int(two_pass), is_bf16)
+                <= MAX_SMEM):
+            return sub
+    return 0
+
+
+def headpack_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
+                       k_pack: int, two_pass: bool,
+                       windows_per_cta: int = WINDOWS_PER_CTA,
+                       out_dtype: torch.dtype = torch.bfloat16) -> Tensor:
+    """R5 (``k_pack`` 2) and R6 (4 and 8): R1's attention of (Bw, n, dim)
+    ``x`` with ``bias`` (heads, n, n) f32, then the out-projection, as
+    ``ops/attention_variants.py::outproj_attention``, each head shifted by
+    its own row max.  ``w`` is R1's (dim, 3 * heads * dh) wqkv or R9's (3,
+    heads, dim, dh) ``w4``; ``wout`` is (heads * dh, out_dim) or (heads, dh,
+    out_dim).  Each is laid out once into the kernel's per-head slices.
+    Each pack of ``k_pack`` consecutive heads takes its q|k|v from one
+    product and its share of the out-projection from another; ``two_pass``:
+    the pack's scores first, then one softmax and P.v; each CTA runs
+    ``windows_per_cta`` windows (the repros' blk).  As many of a pack's
+    heads' q|k|v as fit are in shared memory at once (``_pick_sub_pack``).
+    Returns (Bw, n, out_dim) in ``out_dtype``."""
+    heads = bias.shape[0]
+    if w.dim() == 4:
+        _, _, dim, dh = w.shape
+        wqkv = w.permute(2, 0, 1, 3).reshape(dim, 3 * heads * dh)
+        w_heads = w.permute(1, 2, 0, 3).reshape(heads, dim, 3 * dh)
+    else:
+        dim, dh = w.shape[0], w.shape[1] // (3 * heads)
+        wqkv, w_heads = w, None
+    if x.device.type == "cpu":
+        return plain.outproj_attention(x, wqkv, bias, wout, heads, dh,
+                                       out_dtype=out_dtype)
+    name = "headpack_attention"
+    _check_cuda(name, x, 3)
+    if not (1 <= k_pack <= MAX_GROUP and heads % k_pack == 0):
+        raise ValueError(f"{name}: k_pack={k_pack} must divide {heads} heads "
+                         f"and be <= {MAX_GROUP}")
+    w_heads = (_per_head(w, heads) if w_heads is None
+               else w_heads.contiguous())
+    bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
+    if wout.numel() % (heads * dh):
+        raise ValueError(f"{name}: wout {tuple(wout.shape)} is not ({heads} "
+                         f"* {dh}, out_dim)")
+    wout2 = wout.reshape(heads * dh, -1).contiguous()
+    out_dim = wout2.shape[1]
+    _check_operand(name, "wout", wout2, (heads * dh, out_dim), x.dtype,
+                   x.device)
+    if out_dim % 16 or out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dim={out_dim} (a multiple of 16) or "
+                         f"out_dtype {out_dtype} (f32 or bf16) out of range")
+    if windows_per_cta < 1:
+        raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = library.load()
+    smem_bytes = lib.vgm_headpack_attention_smem_bytes
+    sub_pack = _pick_sub_pack(smem_bytes, dim, dh, out_dim, k_pack, two_pass,
+                              is_bf16)
+    if not sub_pack:
+        raise ValueError(
+            f"{name}: {k_pack} heads a pack of dim={dim}, dim_head={dh}, "
+            f"out_dim={out_dim} need "
+            f"{smem_bytes(dim, dh, out_dim, k_pack, 1, int(two_pass), is_bf16)}"
+            f" bytes of shared memory with one head's q|k|v at a time (at "
+            f"most {MAX_SMEM})")
+    out = torch.empty(bw, n, out_dim, dtype=out_dtype, device=x.device)
+    library.check(lib.vgm_headpack_attention(
+        x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), wout2.data_ptr(),
+        out.data_ptr(), bw, n, dim, heads, dh, out_dim, k_pack, sub_pack,
+        int(two_pass), windows_per_cta, is_bf16,
+        int(out_dtype == torch.bfloat16), library.stream(x)), name)
+    headpack_launches[(k_pack, two_pass, windows_per_cta)] += 1
     return out

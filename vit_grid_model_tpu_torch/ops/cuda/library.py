@@ -110,6 +110,7 @@ def load() -> ctypes.CDLL:
         lib.vgm_crosshead_norm_attention.argtypes = ([ptr] * 4 + [i32] * 8
                                                      + [ptr])
         lib.vgm_outproj_attention.argtypes = [ptr] * 5 + [i32] * 13 + [ptr]
+        lib.vgm_headpack_attention.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
         for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
                    lib.vgm_dropout_keep_mask, lib.vgm_fused_mbconv,
                    lib.vgm_perhead_attention,
@@ -118,7 +119,8 @@ def load() -> ctypes.CDLL:
                    lib.vgm_stacked_softmax_attention,
                    lib.vgm_staged_attention_core,
                    lib.vgm_crosshead_norm_attention,
-                   lib.vgm_outproj_attention):
+                   lib.vgm_outproj_attention,
+                   lib.vgm_headpack_attention):
             fn.restype = ctypes.c_int
         lib.vgm_perhead_attention_smem_bytes.argtypes = [i32] * 3
         lib.vgm_perhead_attention_smem_bytes.restype = ctypes.c_long
@@ -129,6 +131,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_long
         lib.vgm_outproj_attention_smem_bytes.argtypes = [i32] * 6
         lib.vgm_outproj_attention_smem_bytes.restype = ctypes.c_long
+        lib.vgm_headpack_attention_smem_bytes.argtypes = [i32] * 7
+        lib.vgm_headpack_attention_smem_bytes.restype = ctypes.c_long
         lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 7
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_active_clusters.argtypes = [i32] * 7
