@@ -20,15 +20,18 @@ family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
    f32 and bf16; kernel and plain times at the flagship shape;
 2b. dropout keep mask: the CUDA hash bit-equal to its plain version;
 2c. forward kernel with dropout vs plain with the same mask;
-2d. backward kernel vs autograd through the plain forward, at rates 0 and
-    0.1 in f32 and bf16; bit-identical on a second launch; times;
+2d. backward kernels vs autograd through the plain forward, at rates 0 and
+    0.1 in f32 and bf16, windows of 7 and 5 (53 and 29 tokens): K3, and on
+    its bf16 tensor-core path K3-w, the weight gradients from the operands
+    K3 writes, also alone against its plain version; bit-identical on a
+    second launch; K3's, K3-w's and the plain times;
 3. whole model: one sample forward in f32 on the GPU against the CPU;
 4. main path: the evaluation CLI; every window attention must have gone
    through the forward kernel;
 5. whole-model gradients: one training loss and backward in f32 on the GPU
    (forward and backward kernels) against the CPU (plain version) in f64;
 6. training main path: the training CLI; every window attention and its
-   gradient must have gone through the kernels;
+   gradient must have gone through the kernels (K1, K3 and K3-w);
 7. R15: the fused MBConv kernel vs its plain version (bf16 at BN 384 with
    1 and 4 samples per block and at BN 300, f32 at BN 8, a small odd
    shape in both types, the 12-hour model's own MBConv), bit-identical on
@@ -102,11 +105,13 @@ TRAIN_STEPS = 12
 DROPOUT = 0.1
 DROPOUT_SEED = 2 ** 30 + 12345                 # above 2**30, as seeds reach
 # the training cases: (name, heads, dim_head, dim, conditioned, windows,
-# head-0 score offset)
+# head-0 score offset, window size); window 5 has 29 tokens, which leave
+# rows 29..63 of the 64-row tile as padding (window 7: 53..63)
 TRAIN_CASES = [
-    ("flagship", 32, 32, 128, True, TRAIN_WINDOWS, 0.0),
-    ("heads3_uncond", 3, 16, 48, False, 600, 0.0),
-    ("diverging", 32, 32, 128, True, 600, -200.0),
+    ("flagship", 32, 32, 128, True, TRAIN_WINDOWS, 0.0, 7),
+    ("heads3_uncond", 3, 16, 48, False, 600, 0.0, 7),
+    ("diverging", 32, 32, 128, True, 600, -200.0, 7),
+    ("window5", 4, 32, 128, True, 600, 0.0, 5),
 ]
 # each gradient's max|kernel - plain| / max|plain|: f32 sums run in another
 # order; bf16 is the bound tests/test_pallas_attention.py holds the TPU's
@@ -124,15 +129,17 @@ def phase(n, title):
           flush=True)
 
 
-def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed):
-    """A window-attention layer and its inputs, all from a numpy seed."""
+def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed,
+                   window=7):
+    """A window-attention layer and its inputs, all from a numpy seed: Bw
+    windows of window^2 + 4 tokens (53 at the flagship window of 7)."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.attention import Attention
 
     rng = np.random.default_rng(seed)
     m = Attention(dim, cond_dim=2 if conditioned else None, heads=heads,
-                  dim_head=dim_head, window_size=7)
+                  dim_head=dim_head, window_size=window)
     sd = {}
     for name, t in m.state_dict().items():
         if name.startswith("rel_pos_bias"):
@@ -144,7 +151,7 @@ def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed):
             v = rng.uniform(-1, 1, t.shape) / np.sqrt(t.shape[-1])
         sd[name] = torch.from_numpy(v.astype(np.float32))
     m.load_state_dict(sd, strict=True)
-    x = rng.standard_normal((bw, 53, dim)).astype(np.float32)
+    x = rng.standard_normal((bw, window * window + 4, dim)).astype(np.float32)
     cond = (rng.standard_normal((bw // WINDOWS_PER_SAMPLE, 2))
             .astype(np.float32) if conditioned else None)
     return m.eval(), x, cond
@@ -316,7 +323,8 @@ def main_path(card: str):
     return launches
 
 
-def kernel_case(heads, dim_head, dim, conditioned, bw, offset, dev, dtype):
+def kernel_case(heads, dim_head, dim, conditioned, bw, offset, dev, dtype,
+                window=7):
     """A layer from ``attention_case`` on the card: (module, x, cond, the
     kernels' inputs, a cotangent dy), all from numpy seeds."""
     import torch
@@ -325,11 +333,11 @@ def kernel_case(heads, dim_head, dim, conditioned, bw, offset, dev, dtype):
     from vit_grid_model_tpu_torch.ops.window import relative_position_indices
 
     m, x, cond = attention_case(heads, dim_head, dim, conditioned, bw,
-                                offset, SEED)
+                                offset, SEED, window)
     m = m.to(dev, dtype)
     xt = torch.from_numpy(x).to(dev, dtype)
     ct = None if cond is None else torch.from_numpy(cond).to(dev, dtype)
-    bias_idx = relative_position_indices(7, 4, device=dev)
+    bias_idx = relative_position_indices(window, 4, device=dev)
     with torch.no_grad():
         k = cuda_attn.kernel_inputs(m, xt, ct, bias_idx, WINDOWS_PER_SAMPLE)
     dy = (np.random.default_rng(SEED + 7).standard_normal(x.shape)
@@ -413,7 +421,7 @@ def dropout_forward(dev):
     from vit_grid_model_tpu_torch.ops.window import relative_position_indices
 
     bias_idx = relative_position_indices(7, 4, device=dev)
-    for name, heads, dh, dim, conditioned, bw, offset in TRAIN_CASES[:2]:
+    for name, heads, dh, dim, conditioned, bw, offset, _ in TRAIN_CASES[:2]:
         for dtype_name, tol in TOLERANCE.items():
             dtype = getattr(torch, dtype_name)
             m, xt, ct, _, _ = kernel_case(heads, dh, dim, conditioned, bw,
@@ -442,22 +450,60 @@ def dropout_forward(dev):
             torch.cuda.empty_cache()
 
 
-def backward_vs_plain(dev):
+def wgrad_vs_plain(xt, k, dy, rate, card):
+    """K3-w, the weight gradients of K3's tensor-core path, against its
+    plain version on the operands K3 writes for the bf16 flagship case:
+    (max abs err, kernel ms, plain ms, (bound ms, bound by)).  Raises on a
+    second launch that is not bit-identical or an error above 1e-4 of
+    max|plain| (f32 sums in another order; the bf16 products are exact)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
+
+    _, ops = cuda_attn.window_attention_bwd_kernel(xt, k, dy, DROPOUT_SEED,
+                                                   rate)
+    rows, dim = ops.xf.shape
+    heads, _, three_dh = k.wqkv.shape
+    dy2 = dy.view(rows, dim)
+    ours = cuda_attn.window_attention_wgrad(ops, dy2, heads)
+    again = cuda_attn.window_attention_wgrad(ops, dy2, heads)
+    ref = cuda_attn.window_attention_wgrad_reference(ops, dy2, heads)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, a2, b in zip(("dwqkv", "dwout"), ours, again, ref):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"K3-w {name}: two launches differ")
+        e = (a - b).abs().max().item()
+        if not e <= 1e-4 * b.abs().max().item():
+            raise AssertionError(f"K3-w {name} differs from plain by {e}")
+        err = max(err, e)
+    w_ms = cuda_ms(lambda: cuda_attn.window_attention_wgrad(ops, dy2, heads))
+    p_ms = cuda_ms(lambda: cuda_attn.window_attention_wgrad_reference(
+        ops, dy2, heads))
+    bound = wgrad_bound_ms(rows, dim, heads, three_dh // 3)
+    print(f"  K3-w (weight gradients, {rows} rows): kernel {w_ms:.3f} ms  "
+          f"plain {p_ms:.3f} ms  bound {bound[0]:.3f} ms ({bound[1]}); "
+          f"max|d| {err:.3e}; bit-identical rerun; card: {card}", flush=True)
+    return err, w_ms, p_ms, bound
+
+
+def backward_vs_plain(dev, card):
     """Phase 2d: the backward kernel against autograd through the plain
-    forward.  Returns {dtype: (max abs err over the grads, kernel ms, plain
-    ms, fwd+bwd kernel ms, fwd+bwd plain ms)} at the flagship shape, rate
-    0.1."""
+    forward.  Returns {dtype: (max abs err over the grads, K3 ms, plain
+    ms, fwd+bwd kernel ms, K3-w's report or None)} at the flagship shape,
+    rate 0.1."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
     from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
     report = {}
-    for name, heads, dh, dim, conditioned, bw, offset in TRAIN_CASES:
+    for name, heads, dh, dim, conditioned, bw, offset, window in TRAIN_CASES:
         for dtype_name, tol in BWD_TOLERANCE.items():
             dtype = getattr(torch, dtype_name)
             _, xt, _, k, dy = kernel_case(heads, dh, dim, conditioned, bw,
-                                          offset, dev, dtype)
+                                          offset, dev, dtype, window)
             for rate in (0.0, DROPOUT):
                 errs = bwd_errors(xt, k, dy, DROPOUT_SEED, rate)
                 worst = max(e / s if s else e for e, s in errs.values())
@@ -465,23 +511,33 @@ def backward_vs_plain(dev):
                         f"worst rel {worst:.3e} (tol {tol:g}); " + " ".join(
                             f"{g}={e / s if s else e:.1e}"
                             for g, (e, s) in errs.items()))
+                wgrad = None
                 if name == "flagship" and rate == DROPOUT:
                     args = (xt, k, dy, DROPOUT_SEED, rate)
                     bwd = cuda_attn.window_attention_bwd
                     ref = cuda_attn.window_attention_bwd_reference
+                    k3_ms = cuda_ms(lambda: cuda_attn.
+                                    window_attention_bwd_kernel(*args),
+                                    iters=5)
                     b_ms = cuda_ms(lambda: bwd(*args), iters=5)
                     r_ms = cuda_ms(lambda: ref(*args), iters=5)
                     both_ms = cuda_ms(lambda: (
                         cuda_attn.window_attention_fwd(xt, k, DROPOUT_SEED,
                                                        rate),
                         bwd(*args)), iters=5)
-                    line += (f"\n  backward: kernel {b_ms:.3f} ms  plain "
-                             f"{r_ms:.3f} ms (autograd through the plain "
-                             f"forward); forward + backward: kernel "
-                             f"{both_ms:.3f} ms  plain {r_ms:.3f} ms")
+                    line += (f"\n  backward: K3 {k3_ms:.3f} ms, K3 + K3-w "
+                             f"{b_ms:.3f} ms  plain {r_ms:.3f} ms (autograd "
+                             f"through the plain forward); forward + "
+                             f"backward: kernels {both_ms:.3f} ms; card: "
+                             f"{card}")
+                    print(line, flush=True)
+                    line = None
+                    if dtype_name == "bfloat16":
+                        wgrad = wgrad_vs_plain(xt, k, dy, rate, card)
                     report[dtype_name] = (max(e for e, _ in errs.values()),
-                                          b_ms, r_ms, both_ms)
-                print(line, flush=True)
+                                          k3_ms, r_ms, both_ms, wgrad)
+                if line is not None:
+                    print(line, flush=True)
                 bad = [g for g, (e, s) in errs.items() if not e <= tol * s]
                 if bad:
                     raise AssertionError(f"{name} {dtype_name} rate {rate}: "
@@ -631,6 +687,7 @@ def train_path(card: str):
         torch.cuda.synchronize()
         counts = {"window_attention_fwd": cuda_attn.launches,
                   "window_attention_bwd": cuda_attn.bwd_launches,
+                  "window_attention_wgrad": cuda_attn.wgrad_launches,
                   "dropout_keep_mask": cuda_attn.hash_launches}
         cfg = state.model.cfg
         eval_model = load_reference_checkpoint(
@@ -639,11 +696,12 @@ def train_path(card: str):
                    state.model.state_dict().items()}
     layers = sum(cfg.depth_tuple)
     want = 2 * layers * TRAIN_STEPS
-    print(f"kernel launches {counts} (expected fwd = bwd = 2 x {layers} x "
-          f"{TRAIN_STEPS} = {want}, dropout hash in both: {2 * want})",
-          flush=True)
+    print(f"kernel launches {counts} (expected fwd = bwd = wgrad = 2 x "
+          f"{layers} x {TRAIN_STEPS} = {want}, dropout hash in fwd and bwd: "
+          f"{2 * want})", flush=True)
     if (counts["window_attention_fwd"], counts["window_attention_bwd"],
-            counts["dropout_keep_mask"]) != (want, want, 2 * want):
+            counts["window_attention_wgrad"],
+            counts["dropout_keep_mask"]) != (want, want, want, 2 * want):
         raise AssertionError("the training path did not run every window "
                              "attention through the kernels")
     losses = [float(v) for v in re.findall(r"loss=(\S+)", "\n".join(lines))]
@@ -1178,19 +1236,37 @@ def headpack_vs_plain(dev):
 
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
-    products' operations (qkv, scores, P.v, out-projection; the backward
-    recomputes the forward and runs eight more) at the bf16 tensor-core
-    peak, against x and y (and dy, dx) moved once."""
+    products' operations (qkv, scores, P.v, out-projection) at the bf16
+    tensor-core peak, against x and y moved once.  The backward is K3 on
+    its tensor-core path: it recomputes the forward and runs six more
+    products (dO, dV, dPm, dQn, dKn, dXf; the two weight gradients are
+    K3-w's), reads dy, writes dx and the weight-gradient operands once in
+    bf16."""
     import torch
 
     from vit_grid_model_tpu_torch.repros.common import bound_ms
 
     fwd = 2 * n * dim * 3 * heads * dh + 4 * heads * n * n * dh \
         + 2 * n * heads * dh * dim
-    bwd = 2 * 2 * n * dim * heads * dh + 4 * 2 * heads * n * n * dh \
-        + 2 * 2 * n * dim * 3 * heads * dh
+    bwd = 2 * n * dim * heads * dh + 4 * 2 * heads * n * n * dh \
+        + 2 * n * dim * 3 * heads * dh
     ops = bw * (fwd + (bwd if backward else 0))
     moved = bw * n * dim * item * (4 if backward else 2)
+    if backward:
+        moved += bw * n * (dim + 4 * heads * dh) * 2
+    return bound_ms(ops, moved, torch.bfloat16)
+
+
+def wgrad_bound_ms(rows, dim, heads, dh):
+    """(least ms, what bounds it) of K3-w: dWqkv = xf^T [dQ|dK|dV] and
+    dWout = O^T dY over the rows at the bf16 tensor-core peak, against its
+    bf16 operands read once and the f32 gradients written once."""
+    import torch
+
+    from vit_grid_model_tpu_torch.repros.common import bound_ms
+
+    ops = 2 * rows * dim * 3 * heads * dh + 2 * rows * heads * dh * dim
+    moved = rows * (2 * dim + 4 * heads * dh) * 2 + 4 * heads * dim * dh * 4
     return bound_ms(ops, moved, torch.bfloat16)
 
 
@@ -1239,8 +1315,8 @@ def main() -> int:
     phase("2c", "forward kernel with dropout vs plain")
     dropout_forward(dev)
 
-    phase("2d", "backward kernel vs plain on the card")
-    bwd_report = backward_vs_plain(dev)
+    phase("2d", "backward kernels vs plain on the card")
+    bwd_report = backward_vs_plain(dev, card)
 
     phase(3, "whole model, GPU vs CPU")
     whole_model(dev)
@@ -1336,7 +1412,8 @@ def main() -> int:
                                  for k in HEADPACK_K})
 
     err, k_ms, p_ms = report["bfloat16"]
-    b_err, b_ms, r_ms, _ = bwd_report["bfloat16"]
+    b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
+        "bfloat16"]
     m_err, m_ms, mp_ms = mask_report
     mb = mb_results[384]
     src = "vit_grid_model_tpu_torch/csrc/"
@@ -1359,6 +1436,11 @@ def main() -> int:
         ("window_attention_bwd", "window_attention_bwd.cu", f"{tpu}:534",
          train_counts["window_attention_bwd"], b_err, b_ms, r_ms, bwd_bound,
          None),
+        # the plain time is that of K3-w's own plain version, two einsums;
+        # no one PyTorch call computes both products
+        ("window_attention_wgrad", "window_attention_wgrad.cu", f"{tpu}:534",
+         train_counts["window_attention_wgrad"], w_err, w_ms, wp_ms,
+         w_bound, None),
         ("dropout_keep_mask", "dropout_hash.cuh", f"{tpu}:68",
          train_counts["dropout_keep_mask"], m_err, m_ms, mp_ms, mask_bound,
          None),

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-GPU: the window-attention forward (with and without dropout), its backward,
-the dropout keep mask, the fused MBConv, the per-head attention of R1/R14
+GPU: the window-attention forward (with and without dropout), its backward
+(K3, and K3-w, the weight gradients of its tensor-core path), the dropout
+keep mask, the fused MBConv, the per-head attention of R1/R14
 (and R9's route through it), the MaxViT layer megakernel of R7, the
 kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
 core, and R11 whole) and R3 (cross-head indicator norm), the
@@ -13,8 +14,9 @@ This file imports no JAX, so it runs on a machine without it:
 
 Tolerances, relative to max|plain|: forward f32 1e-4 (sums in another
 order), bf16 2e-2 (bf16 rounding at other points); backward, each gradient,
-f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``); the fused MBConv as
-the forward, as are R1/R14, R7, R4, R9, R10, R11, R3, the out-projection
+f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``), K3-w alone 1e-4
+(f32 sums in another order) and bit-identical on a second launch; the fused
+MBConv as the forward, as are R1/R14, R7, R4, R9, R10, R11, R3, the out-projection
 kernel and the head-pack kernel (whose f32 cases take an f32 output), whose
 second launches are bit-identical.
 The keep mask is bit-equal.  Layers and inputs come from
@@ -22,6 +24,7 @@ The keep mask is bit-equal.  Layers and inputs come from
 seeds).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -124,23 +127,64 @@ def test_kernel_with_dropout_matches_plain(dtype, heads, dim_head, dim,
     assert err <= TOL[dtype] * ref.abs().max().item(), err
 
 
+# the backward's cases: CASES at window 7 (53 tokens), and the flagship
+# widths at window 5, whose 29 tokens leave another padding (rows 29..63 of
+# the 64-row tile; two of its four 16-row strips wholly padding)
+BWD_CASES = [case + (7,) for case in CASES] + [(4, 32, 128, True, 0.0, 5)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset,window",
+                         BWD_CASES)
 def test_backward_matches_plain(rate, dtype, heads, dim_head, dim,
-                                conditioned, offset):
+                                conditioned, offset, window):
     """Every output of the backward kernel against autograd through the
     plain forward with the same mask; a second launch is bit-identical."""
     _need_cuda()
     _, xt, _, k, dy = chip_smoke.kernel_case(
         heads, dim_head, dim, conditioned, 60, offset, torch.device("cuda"),
-        dtype)
+        dtype, window)
     before = cuda_attn.bwd_launches
     errs = chip_smoke.bwd_errors(xt, k, dy, 2 ** 31 - 2, rate)
     assert cuda_attn.bwd_launches == before + 2
     tol = chip_smoke.BWD_TOLERANCE[str(dtype).split(".")[-1]]
     bad = {g: (e, s) for g, (e, s) in errs.items() if not e <= tol * s}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("rows,dim,heads,dim_head", [
+    (60 * 53, 128, 4, 32),     # one row chunk, its last 32-row stage ragged
+    (9000, 128, 32, 32),       # three chunks, the flagship's 24 + 8 tiles
+    (60 * 29, 48, 3, 16),      # tiles past M and N (48 x 144, 48 x 48)
+])
+def test_wgrad_matches_plain(rows, dim, heads, dim_head):
+    """K3-w, the weight gradients of K3's tensor-core path, against its
+    plain version on random bf16 operands: f32 sums in another order (the
+    bf16 products are exact in f32), 1e-4 of max|plain|; a second launch
+    is bit-identical."""
+    _need_cuda()
+    rng = np.random.default_rng(rows)
+
+    def operand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+
+    ops = cuda_attn.WgradOperands(operand(rows, dim),
+                                  operand(rows, 3 * heads * dim_head),
+                                  operand(rows, heads * dim_head))
+    dy = operand(rows, dim)
+    before = cuda_attn.wgrad_launches
+    ours = cuda_attn.window_attention_wgrad(ops, dy, heads)
+    again = cuda_attn.window_attention_wgrad(ops, dy, heads)
+    ref = cuda_attn.window_attention_wgrad_reference(ops, dy, heads)
+    torch.cuda.synchronize()
+    assert cuda_attn.wgrad_launches == before + 2
+    for a, a2, b in zip(ours, again, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert torch.equal(a, a2)
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), err
 
 
 @pytest.mark.parametrize("conditioned", [True, False])

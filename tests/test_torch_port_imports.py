@@ -26,6 +26,7 @@ bad = [m for m in sys.modules
 assert not bad, bad
 assert library._lib is None
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
+assert attention.wgrad_launches == 0
 assert attention_variants.layer_launches == 0
 assert (attention_variants.headmajor_launches
         == attention_variants.stacked_launches

@@ -1,7 +1,8 @@
 // Device helpers shared by the attention kernels under csrc/: conversions
 // between f32 and the activation type T (f32 or bf16), warp reductions, the
 // wmma tile product the bf16 paths run the projections on, the mma.sync
-// m16n8k16 bf16 fragments, the cp.async copies, the CUDA-core f32 product
+// m16n8k16 bf16 fragments (and f32 operands split into bf16 high and low
+// parts for them), the cp.async copies, the CUDA-core f32 product
 // and the per-head steps (norm, scores, softmax, P.v) of the per-head
 // kernels, a few query rows' attention run by one warp (attend_rows), and
 // the steps of the head-group kernels (R4's and R3's): a group's q|k|v
@@ -72,11 +73,12 @@ __device__ __forceinline__ size_t wmma_offset(int r, int c, int ld) {
 // layouts LA and LB (shared or device memory), f32 sums, C f32 row-major
 // in shared or device memory (this CTA its only writer).  M, N, K are
 // multiples of 16, and every 16 x 16 tile starts 32-byte aligned.  Warp w
-// owns the output tiles w, w + 8, ...
+// owns the output tiles w, w + 8, ...  Ends in a block barrier unless
+// `sync` is false.
 template <typename LA, typename LB>
 __device__ void wmma_mm(int M, int N, int K, const __nv_bfloat16* A,
                         int lda, const __nv_bfloat16* B, int ldb, float* C,
-                        int ldc, bool accumulate) {
+                        int ldc, bool accumulate, bool sync = true) {
   namespace wmma = nvcuda::wmma;
   const int mt = M / 16;
   const int tiles = mt * (N / 16);
@@ -98,7 +100,7 @@ __device__ void wmma_mm(int M, int N, int K, const __nv_bfloat16* A,
     }
     wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
   }
-  __syncthreads();
+  if (sync) __syncthreads();
 }
 
 // One m16n8k16 tensor-core step, c += a . b: bf16 operands in registers
@@ -122,6 +124,29 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x and y split into bf16 high parts (hi, packed low first) and the bf16
+// roundings of the remainders (lo): hi + lo equals each value to ~2^-17 of
+// it, so the three products hi.hi + hi.lo + lo.hi of two split operands
+// carry ~2^-16 relative error, where one bf16 product carries ~2^-8.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// c += a . b for split operands (fragments as in mma_bf16_16816): the
+// three products, the small ones first.
+__device__ __forceinline__ void mma_split_16816(float (&c)[4],
+                                                const uint32_t (&ahi)[4],
+                                                const uint32_t (&alo)[4],
+                                                const uint32_t (&bhi)[2],
+                                                const uint32_t (&blo)[2]) {
+  mma_bf16_16816(c, alo, bhi[0], bhi[1]);
+  mma_bf16_16816(c, ahi, blo[0], blo[1]);
+  mma_bf16_16816(c, ahi, bhi[0], bhi[1]);
 }
 
 __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {

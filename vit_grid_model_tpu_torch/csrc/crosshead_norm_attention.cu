@@ -123,11 +123,7 @@ __device__ void indicator_norm_sums(const float* rows, int ldr, int group,
         uint32_t hi[4], lo[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float x = s[i].x * s[i].x;
-          const float y = s[i].y * s[i].y;
-          const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-          hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-          lo[i] = pack_bf16(x - __low2float(h), y - __high2float(h));
+          split_bf16(s[i].x * s[i].x, s[i].y * s[i].y, hi[i], lo[i]);
         }
         mma_bf16_16816(c, hi, b, b);
         mma_bf16_16816(c, lo, b, b);

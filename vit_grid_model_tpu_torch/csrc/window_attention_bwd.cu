@@ -30,34 +30,64 @@
 // A GPU grid runs in no order and nothing carries between CTAs, whereas
 // the TPU kernel adds its weight gradients into one output block across a
 // sequential grid.  Here CTA c owns a contiguous chunk of windows and an f32
-// slot of its own (dWqkv, dWout, dqg, dkg, dbias: heads*(4*dim*dh + 2*dh +
-// n*n) floats, 2.5 MB at the flagship shape), into which it adds each
-// window's per-head products with plain loads and stores.  A second kernel
-// sums the slots in slot order.  Two runs of the same inputs therefore give
-// bit-identical gradients; no float atomics are used.  The slots cost one
-// slot per CTA: ~0.3 GB at the flagship shape with one CTA per SM.
+// slot of its own, into which it adds each window's per-head products with
+// plain loads and stores; a second kernel sums the slots in slot order.
+// Two runs of the same inputs therefore give bit-identical gradients; no
+// float atomics are used.  On the f32 path the slot holds dWqkv, dWout,
+// dqg, dkg and dbias (heads*(4*dim*dh + 2*dh + n*n) floats, 2.5 MB at the
+// flagship shape, ~0.3 GB for one CTA per SM).  On the tensor-core path it
+// holds dqg, dkg and dbias (0.37 MB): the kernel writes, once, the
+// T-rounded operands of the weight-gradient products (xf, dQ|dK|dV and O,
+// rows < n, bf16; 0.65 GB at Bw = 1,440) and window_attention_wgrad.cu sums
+// dWqkv = xf^T [dQ|dK|dV] and dWout = O^T dY over all rows.
 //
 // What bounds it on an H100.  One window costs ~190-220 MFLOP at the
 // flagship shape (dim 128, 32 heads x 32, n = 53, rows padded to 64), ~3x
 // the forward, of which the five projection products (qkv recompute, dO,
 // dWout, dWqkv, dXf) are ~83%; one call at Bw = 1,440 is ~0.3 TFLOP, so it
-// is bound by arithmetic.  The slot read-modify-writes add ~5 MB of
-// traffic per window (~7 GB a call, a few ms of device-memory time).  In
-// bf16, with dim and dh multiples of 16, the five projection products run
-// on the tensor cores through wmma 16x16x16 tiles with f32 sums (bf16
-// operands in shared memory, weight fragments read straight from L2, the
-// slot's f32 tiles loaded and stored by the owning warp); the f32 path,
-// and everything else, runs 4x4 register tiles of a 16x16 thread grid on
-// CUDA-core FMAs (TF32 would not meet the f32 tolerance).  The ~190-200 KB
-// of per-window state (xf, dY, dXf, q|k|v, dQ|dK|dV, P, dS, dO) stays in
-// shared memory, so one 256-thread CTA runs per SM.  At Bw = 1,440 on an
-// NVIDIA H100 80GB HBM3 at 700 W a call took 23.2 ms in bf16 (52.2 ms with
-// every product on CUDA cores) and 51.5 ms in f32, against 39.5 and 44.6 ms
-// for autograd through the plain version.  Several CTAs per SM, wgmma and
-// weight tiles staged by TMA are later work.
+// is bound by arithmetic.  What held the first design back (clock64 stamps
+// at the block barriers, bf16, Bw = 1,440): the n x n products on CUDA
+// cores with their softmax and dS passes (~57% of the cycles), the slot
+// read-modify-writes (~19%: dbias's per-row adds and the dWqkv, dWout
+// tiles in device memory) and ~16 exposed barriers a head at one CTA an SM.
+//
+// Two paths.  The f32 path, and bf16 with dim or dh off the 16-multiples,
+// runs every product as 4x4 register tiles of a 16x16 thread grid on
+// CUDA-core FMAs (TF32 would not meet the f32 tolerance), each product
+// ending in a block barrier.  The tensor-core path (kTC: bf16, dim and dh
+// multiples of 16) runs
+//   - the three projections left to it (q|k|v, dO, dXf) on wmma 16x16x16
+//     tiles with f32 sums (bf16 operands in shared memory, weight fragments
+//     read straight from L2);
+//   - the six n x n products (S, O, dV, dPm, dQn, dKn) on mma.sync
+//     m16n8k16.  The TPU kernel feeds them f32 operands, so each operand is
+//     split into a bf16 high part and the bf16 rounding of its remainder,
+//     and each product is taken three times (hi.hi + hi.lo + lo.hi, f32
+//     sums, ~2^-16 relative error).
+// Warp w of the 8 owns the 16-row strip w % 4 of the 64-row tile.  Warps w
+// and w + 4 both compute their strip's scores and softmax in registers
+// (the row max and sum across the four lanes of a quad by shuffles, the
+// bias read ahead); then warp w stores Pm and takes O = Pm.v from its
+// registers, and warp w + 4 takes dPm = dO.v^T, dS, dbias (its slot values
+// read ahead) and dQn = dS.kn from its registers, with dQ's l2-norm
+// backward row-local.  After one barrier warp w takes dV = Pm^T.dO and
+// warp w + 4 dKn = dS^T.qn over the strip's 16 keys.  A head costs four
+// block barriers.  Pm's padded rows (n..63) are zeroed before any product
+// that sums over rows (dV, and through O dWout); O's and dQ|dK|dV's padded
+// rows are never written and stay zero; strips wholly past n are skipped.
+// The ~160 KB of per-window state (xf, dY, dXf, q|k|v, dQ|dK|dV, Pm, dS,
+// dO, O) stays in shared memory, so one 256-thread CTA runs per SM.  At
+// Bw = 1,440 in bf16 on an NVIDIA H100 80GB HBM3 at 700 W the kernel takes
+// 12.2-12.5 ms and window_attention_wgrad.cu 0.39-0.40 ms, against
+// 22.7-23.3 ms for the first design (every n x n product on CUDA cores, the
+// weight gradients in the slots); the f32 path takes ~52 ms.  The weight
+// fragments' L2 latency in the wmma products, the two warps' shared score
+// strip, wgmma and several CTAs per SM are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "attention_common.cuh"
 #include "dropout_hash.cuh"
@@ -71,6 +101,9 @@ constexpr int kChunkK = 32;    // rows of a staged weight tile
 constexpr int kChunkN = 64;    // columns of one GEMM pass
 constexpr int kMaxDim = 128;
 constexpr int kMaxDimHead = 64;
+constexpr int kStrips = kRows / 16;          // 16-row strips (kTC)
+constexpr int kKeyTiles = kRows / 8;         // 8-key tiles of a score strip
+constexpr int kHeadTiles = kMaxDimHead / 8;  // 8-column tiles of a head
 constexpr size_t kMaxSmem = 232448;
 
 // C[m][c] (+)= nscale[c] * sum_k A(m, k) * kscale[k] * B(k, c) for m < M,
@@ -171,15 +204,149 @@ __device__ void round_buffer(float* buf, int ld, int rows, int cols) {
     __syncthreads();
   }
 }
+// ---- kTC: fragments of f32 operands in shared memory, split for
+// mma_split_16816 (lane l = 4g + t; layouts as in mma_bf16_16816) ----
+
+// A fragment of the 16 x 16 block at a (rows ld apart), column k scaled by
+// ks[k] when ks is not null.
+__device__ __forceinline__ void frag_a(const float* a, int ld,
+                                       const float* ks, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = 2 * t + 8 * (i >> 1);
+    float2 v = *reinterpret_cast<const float2*>(a + (g + 8 * (i & 1)) * ld +
+                                                c);
+    if (ks != nullptr) {
+      v.x *= ks[c];
+      v.y *= ks[c + 1];
+    }
+    split_bf16(v.x, v.y, hi[i], lo[i]);
+  }
+}
+
+// A fragment of the transpose of the 16 x 16 block at x: A(m, k) =
+// x[k * ld + m].
+__device__ __forceinline__ void frag_a_t(const float* x, int ld,
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = g + 8 * (i & 1);
+    const int k = 2 * t + 8 * (i >> 1);
+    split_bf16(x[k * ld + m], x[(k + 1) * ld + m], hi[i], lo[i]);
+  }
+}
+
+// B fragment (16 x 8) of the block at x: B(k, c) = x[k * ld + c].
+__device__ __forceinline__ void frag_b(const float* x, int ld,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k = 2 * t + 8 * i;
+    split_bf16(x[k * ld + g], x[(k + 1) * ld + g], hi[i], lo[i]);
+  }
+}
+
+// B fragment of the transpose of the 8 x 16 block at y: B(k, c) =
+// y[c * ld + k].
+__device__ __forceinline__ void frag_b_t(const float* y, int ld,
+                                         uint32_t (&hi)[2],
+                                         uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 v =
+        *reinterpret_cast<const float2*>(y + g * ld + 2 * t + 8 * i);
+    split_bf16(v.x, v.y, hi[i], lo[i]);
+  }
+}
+
+// The A fragment of one 16-column step from the accumulators of its two
+// 8-column tiles (c0: columns 0-7, c1: 8-15).
+__device__ __forceinline__ void frag_a_acc(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// A strip of dQn (or dKn): rows r0..r0+15 of acc . diag(nscale), held in
+// the accumulators of dh / 8 column tiles.  Writes the strip's column sums
+// of dQn * u to part[c] (c < dh; for dqg_h) and, for rows r < n, the
+// l2-norm backward dQ = rs[r] (dQn sc - u <dQn sc, u> ok[r]) in bf16 to
+// out (rows ldo apart).  u: the normalized q (or k) rows, ldu apart.
+__device__ __forceinline__ void l2_backward_strip(
+    float (&acc)[kHeadTiles][4], int r0, int n, int dh, const float* nscale,
+    const float* sc, const float* u, int ldu, const float* rs,
+    const float* ok, float* part, __nv_bfloat16* out, int ldo) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int ra = r0 + g;
+  const int rb = ra + 8;
+  const float* ua = u + ra * ldu;
+  const float* ub = u + rb * ldu;
+  float proj_a = 0.f, proj_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < kHeadTiles; ++j) {
+    if (j < dh / 8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        acc[j][e] *= nscale[c];
+        acc[j][2 + e] *= nscale[c];
+        float cs = acc[j][e] * ua[c] + acc[j][2 + e] * ub[c];
+        cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+        if (g == 0) part[c] = cs;
+        proj_a += acc[j][e] * sc[c] * ua[c];
+        proj_b += acc[j][2 + e] * sc[c] * ub[c];
+      }
+    }
+  }
+  proj_a += __shfl_xor_sync(0xffffffffu, proj_a, 1);
+  proj_a += __shfl_xor_sync(0xffffffffu, proj_a, 2);
+  proj_b += __shfl_xor_sync(0xffffffffu, proj_b, 1);
+  proj_b += __shfl_xor_sync(0xffffffffu, proj_b, 2);
+  proj_a *= ok[ra];
+  proj_b *= ok[rb];
+#pragma unroll
+  for (int j = 0; j < kHeadTiles; ++j) {
+    if (j < dh / 8) {
+      const int c = 8 * j + 2 * t;
+      if (ra < n)
+        *reinterpret_cast<uint32_t*>(out + ra * ldo + c) = pack_bf16(
+            rs[ra] * (acc[j][0] * sc[c] - ua[c] * proj_a),
+            rs[ra] * (acc[j][1] * sc[c + 1] - ua[c + 1] * proj_a));
+      if (rb < n)
+        *reinterpret_cast<uint32_t*>(out + rb * ldo + c) = pack_bf16(
+            rs[rb] * (acc[j][2] * sc[c] - ub[c] * proj_b),
+            rs[rb] * (acc[j][3] * sc[c + 1] - ub[c + 1] * proj_b));
+    }
+  }
+}
 
 // Shared-memory plan of one CTA (element strides and byte offsets).  The
 // f32 path keeps odd strides, which keep column-strided reads free of bank
-// conflicts.  kTC (bf16, dim and dh multiples of 16) keeps xf and dY only
-// in bf16, adds bf16 copies of O and of dQ|dK|dV for the tensor cores, and
-// pads the strides that wmma reads or writes to 16-byte multiples.
+// conflicts, and f32 xf, dY, P, Pm|dS and dQ|dK|dV.  kTC keeps xf and dY in
+// bf16, dQ|dK|dV and O only in bf16 (for the tensor cores), Pm and dS in
+// f32, and the strips' dqg|dkg column sums; its strides keep the wmma tiles
+// 32-byte aligned and the fragment reads of a quad on distinct banks.
 struct Plan {
-  int ldx, ldxf, ldq, ldqh, ldo, ldoh;
-  size_t xf, dy, dxf, qkv, dqkv, dqkv_h, p, ds, d_o, o_h, stage, vec, bytes;
+  int ldx, ldxf, ldq, ldqh, ldo, ldoh, ldp;
+  size_t xf, dy, dxf, qkv, dqkv, dqkv_h, p, ds, d_o, o_h, stage, part, vec,
+      bytes;
 };
 
 template <bool kTC>
@@ -191,6 +358,7 @@ __host__ __device__ Plan make_plan(int dim, int dh) {
   p.ldqh = 3 * dh + 8;
   p.ldo = kTC ? dh + 4 : dh + 1;
   p.ldoh = dh + 8;
+  p.ldp = kTC ? kRows + 4 : kLdS;
   const size_t xbytes = kTC ? 2 : 4;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -202,13 +370,15 @@ __host__ __device__ Plan make_plan(int dim, int dh) {
   p.dy = take(kRows * p.ldx * xbytes);
   p.dxf = take(kRows * p.ldxf * sizeof(float));
   p.qkv = take(kRows * p.ldq * sizeof(float));
-  p.dqkv = take(kRows * p.ldq * sizeof(float));
+  p.dqkv = take(kTC ? 0 : kRows * p.ldq * sizeof(float));
   p.dqkv_h = take(kTC ? kRows * p.ldqh * 2 : 0);
-  p.p = take(kRows * kLdS * sizeof(float));
-  p.ds = take(kRows * kLdS * sizeof(float));
+  p.p = take(kRows * p.ldp * sizeof(float));   // P; kTC: Pm
+  p.ds = take(kRows * p.ldp * sizeof(float));  // Pm, then dS; kTC: dS
   p.d_o = take(kRows * p.ldo * sizeof(float));
   p.o_h = take(kTC ? kRows * p.ldoh * 2 : 0);
-  p.stage = take(kChunkK * kChunkN * sizeof(float));
+  p.stage = take(kTC ? 0 : kChunkK * kChunkN * sizeof(float));
+  // kTC: each strip's column sums for dqg_h | dkg_h
+  p.part = take(kTC ? kStrips * 2 * kMaxDimHead * sizeof(float) : 0);
   // per-row mean, 1/std, 1/|q|, 1/|k|, |q|^2 > eps, |k|^2 > eps; per-column
   // s_q, s_k, s_q * s_k
   p.vec = take((6 * kRows + 3 * kMaxDimHead) * sizeof(float));
@@ -216,17 +386,20 @@ __host__ __device__ Plan make_plan(int dim, int dh) {
   return p;
 }
 
-// Layout of one f32 gradient slot (and of the reduced output); floats is
-// padded to a multiple of 8, so that every slot starts 32-byte aligned.
+// Layout of one f32 gradient slot, and with the weights of the reduced
+// output; kTC's slot holds no weight gradients (window_attention_wgrad.cu
+// computes them).  floats is padded to a multiple of 8, so that every slot
+// starts 32-byte aligned.
 struct Slot {
   size_t dwqkv, dwout, dqg, dkg, dbias, floats;
 };
 
-__host__ __device__ Slot make_slot(int n, int dim, int heads, int dh) {
+__host__ __device__ Slot make_slot(int n, int dim, int heads, int dh,
+                                   bool weights) {
   Slot s{};
   s.dwqkv = 0;
-  s.dwout = s.dwqkv + static_cast<size_t>(heads) * dim * 3 * dh;
-  s.dqg = s.dwout + static_cast<size_t>(heads) * dh * dim;
+  s.dwout = weights ? static_cast<size_t>(heads) * dim * 3 * dh : 0;
+  s.dqg = s.dwout + (weights ? static_cast<size_t>(heads) * dh * dim : 0);
   s.dkg = s.dqg + static_cast<size_t>(heads) * dh;
   s.dbias = s.dkg + static_cast<size_t>(heads) * dh;
   s.floats = (s.dbias + static_cast<size_t>(heads) * n * n + 7) / 8 * 8;
@@ -242,19 +415,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         const T* __restrict__ wout, const float* __restrict__ bias,
         const T* __restrict__ dy, T* __restrict__ dx,
         float* __restrict__ dgamma_w, float* __restrict__ dbeta_w,
-        float* __restrict__ slots, int bw, int windows_per_cta, int n,
+        float* __restrict__ slots, __nv_bfloat16* __restrict__ scratch,
+        int bw, int windows_per_cta, int n,
         int dim, int heads, int dh, int windows_per_sample, int has_film,
         unsigned seed, unsigned keep_threshold, float keep_scale) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan plan = make_plan<kTC>(dim, dh);
-  const Slot lay = make_slot(n, dim, heads, dh);
+  const Slot lay = make_slot(n, dim, heads, dh, !kTC);
   const int ldx = plan.ldx;
   const int ldxf = plan.ldxf;
   const int ldq = plan.ldq;
   const int ldqh = plan.ldqh;
   const int ldo = plan.ldo;
   const int ldoh = plan.ldoh;
+  const int ldp = plan.ldp;
   // xf and dY: f32 (rounded to T), or bf16 for the tensor cores
   float* xf = reinterpret_cast<float*>(smem + plan.xf);
   float* dys = reinterpret_cast<float*>(smem + plan.dy);
@@ -264,11 +439,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* qkv = reinterpret_cast<float*>(smem + plan.qkv);    // u_q|u_k|v
   float* dqkv = reinterpret_cast<float*>(smem + plan.dqkv);  // dQ|dK|dV
   bf16* dqkv_h = reinterpret_cast<bf16*>(smem + plan.dqkv_h);
-  float* P = reinterpret_cast<float*>(smem + plan.p);
+  float* P = reinterpret_cast<float*>(smem + plan.p);        // kTC: Pm
   float* S2 = reinterpret_cast<float*>(smem + plan.ds);      // Pm, dS
   float* dO = reinterpret_cast<float*>(smem + plan.d_o);
   bf16* o_h = reinterpret_cast<bf16*>(smem + plan.o_h);
   float* stage = reinterpret_cast<float*>(smem + plan.stage);
+  float* part = reinterpret_cast<float*>(smem + plan.part);
   float* vec = reinterpret_cast<float*>(smem + plan.vec);
   float* mean_s = vec;
   float* rln_s = vec + kRows;
@@ -277,6 +453,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sq_s = vec + 6 * kRows;                  // s_q | s_k | s_q s_k
   float* sk_s = sq_s + kMaxDimHead;
   float* ssk_s = sk_s + kMaxDimHead;
+  // kTC: the weight-gradient operands of window_attention_wgrad.cu, rows
+  // < n of every window: xf (R, dim), dQ|dK|dV (R, heads * 3dh) and O (R,
+  // heads * dh) in bf16, R = bw * n
+  bf16* scr_xf = scratch;
+  bf16* scr_dqkv = scratch + static_cast<size_t>(bw) * n * dim;
+  bf16* scr_o = scr_dqkv + static_cast<size_t>(bw) * n * heads * 3 * dh;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -343,6 +525,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (kTC) {
           xf_h[r * ldx + c] = __float2bfloat16(val);
           dy_h[r * ldx + c] = __float2bfloat16(dv);
+          if (r < n)
+            scr_xf[(static_cast<size_t>(win) * n + r) * dim + c] =
+                __float2bfloat16(val);
         } else {
           xf[r * ldx + c] = round_to<T>(val);
           dys[r * ldx + c] = dv;
@@ -355,198 +540,518 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int h = 0; h < heads; ++h) {
       const T* wq = wqkv + static_cast<size_t>(h) * dim * 3 * dh;
       const T* wo = wout + static_cast<size_t>(h) * dh * dim;
+      const float* bh = bias + static_cast<size_t>(h) * n * n;
+      float* dbias_h = slot + lay.dbias + static_cast<size_t>(h) * n * n;
       float* u_q = qkv;
       float* u_k = qkv + dh;
       float* v = qkv + 2 * dh;
 
-      // q|k|v = xf . Wqkv_h          (Wqkv_h: dim x 3dh, row-major)
-      if constexpr (kTC)
+      if constexpr (kTC) {
+        // q|k|v = xf . Wqkv_h (Wqkv_h: dim x 3dh, row-major) and dO = dY .
+        // Wout_h^T (Wout_h: dh x dim) in one pass; the head's gains are
+        // read meanwhile
+        float qg = 0.f, kg = 0.f;
+        if (tid < dh) {
+          qg = q_gamma[h * dh + tid];
+          kg = k_gamma[h * dh + tid];
+        }
         wmma_mm<wmma::row_major, wmma::row_major>(
-            kRows, 3 * dh, dim, xf_h, ldx, wq, 3 * dh, qkv, ldq, false);
-      else
+            kRows, 3 * dh, dim, xf_h, ldx, wq, 3 * dh, qkv, ldq, false,
+            false);
+        wmma_mm<wmma::row_major, wmma::col_major>(
+            kRows, dh, dim, dy_h, ldx, wo, dim, dO, ldo, false);
+
+        // l2-normalize q and k rows: a quad per (row, q-or-k)
+        const int gq = lane >> 2;  // the quad: rows gq and gq + 8 of a strip
+        const int tq = lane & 3;   // its columns 2tq, 2tq + 1 of a tile
+        for (int t = tid >> 2; t < 2 * kRows; t += kThreads / 4) {
+          const int r = t >> 1;
+          const int which = t & 1;
+          float* vecp = qkv + r * ldq + which * dh;
+          float ss = 0.f;
+          for (int d = tq; d < dh; d += 4) ss += vecp[d] * vecp[d];
+          ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+          ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+          const float rs = rsqrtf(fmaxf(ss, 1e-24f));
+          for (int d = tq; d < dh; d += 4) vecp[d] *= rs;
+          if (tq == 0) {
+            rq_s[which * kRows + r] = rs;
+            ok_s[which * kRows + r] = ss > 1e-24f ? 1.f : 0.f;
+          }
+        }
+        if (tid < dh) {
+          sq_s[tid] = sqrt_dh * qg;
+          sk_s[tid] = sqrt_dh * kg;
+          ssk_s[tid] = sq_s[tid] * sk_s[tid];
+        }
+        __syncthreads();
+
+        // ---- the n x n products: warp w owns the 16-row strip w % 4 ----
+        const int strip = warp % kStrips;
+        const bool second = warp >= kStrips;  // dPm, dS, dQn, dKn
+        const int r0 = 16 * strip;
+        const int nk = (n + 15) / 16;  // 16-row strips (and key steps) < n
+        const int dht = dh / 8;        // 8-column tiles of a head
+        uint32_t ahi[4], alo[4], bhi[2], blo[2];
+        if (strip < nk) {
+          // the strip's bias (rows gq and gq + 8: a quad's four lanes
+          // share each row), read before the product that waits for it
+          const int ra = r0 + gq;
+          const int rb = ra + 8;
+          float bv[kKeyTiles][4];
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = i < 2 ? ra : rb;
+              const int c = 8 * j + 2 * tq + (i & 1);
+              bv[j][i] = j < 2 * nk && c < n && r < n ? bh[r * n + c] : 0.f;
+            }
+          }
+          // S = qn kn^T for the strip: 2nk tiles of 8 keys
+          float s[kKeyTiles][4];
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j)
+            s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+          for (int k0 = 0; k0 < dh; k0 += 16) {
+            frag_a(u_q + r0 * ldq + k0, ldq, ssk_s + k0, ahi, alo);
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j) {
+              if (j < 2 * nk) {
+                frag_b_t(u_k + 8 * j * ldq + k0, ldq, bhi, blo);
+                mma_split_16816(s[j], ahi, alo, bhi, blo);
+              }
+            }
+          }
+          // + bias, softmax with this head's own row max
+          float ma = -1e30f, mb = -1e30f;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = i < 2 ? ra : rb;
+              const int c = 8 * j + 2 * tq + (i & 1);
+              const float val = j < 2 * nk && c < n ? s[j][i] + bv[j][i]
+                                                    : -1e30f;
+              s[j][i] = val;
+              if (i < 2)
+                ma = fmaxf(ma, val);
+              else
+                mb = fmaxf(mb, val);
+            }
+          }
+          ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
+          ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
+          mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+          mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+          float da = 0.f, db = 0.f;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float e = expf(s[j][i] - (i < 2 ? ma : mb));
+              s[j][i] = e;
+              if (i < 2)
+                da += e;
+              else
+                db += e;
+            }
+          }
+          da += __shfl_xor_sync(0xffffffffu, da, 1);
+          da += __shfl_xor_sync(0xffffffffu, da, 2);
+          db += __shfl_xor_sync(0xffffffffu, db, 1);
+          db += __shfl_xor_sync(0xffffffffu, db, 2);
+          da = 1.f / da;
+          db = 1.f / db;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+            s[j][0] *= da;
+            s[j][1] *= da;
+            s[j][2] *= db;
+            s[j][3] *= db;
+          }
+          if (!second) {
+            // Pm = P * keep, padded rows zeroed; to shared memory for dV
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j) {
+              if (j < 2 * nk) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const int r = i < 2 ? ra : rb;
+                  const int c = 8 * j + 2 * tq + (i & 1);
+                  float keep = 1.f;
+                  if (dropout && r < n && c < n)
+                    keep = vgm_keep(seed, win, h, r, c, heads, n_pad,
+                                    keep_threshold, keep_scale);
+                  s[j][i] = r < n ? s[j][i] * keep : 0.f;
+                }
+                const int c = 8 * j + 2 * tq;
+                *reinterpret_cast<float2*>(P + ra * ldp + c) =
+                    make_float2(s[j][0], s[j][1]);
+                *reinterpret_cast<float2*>(P + rb * ldp + c) =
+                    make_float2(s[j][2], s[j][3]);
+              }
+            }
+            // O = Pm . v, rounded to T, rows < n
+            float o[kHeadTiles][4];
+#pragma unroll
+            for (int j = 0; j < kHeadTiles; ++j)
+              o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < kStrips; ++kk) {
+              if (kk < nk) {
+                frag_a_acc(s[2 * kk], s[2 * kk + 1], ahi, alo);
+#pragma unroll
+                for (int j = 0; j < kHeadTiles; ++j) {
+                  if (j < dht) {
+                    frag_b(v + 16 * kk * ldq + 8 * j, ldq, bhi, blo);
+                    mma_split_16816(o[j], ahi, alo, bhi, blo);
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kHeadTiles; ++j) {
+              if (j < dht) {
+                const int c = 8 * j + 2 * tq;
+                if (ra < n)
+                  *reinterpret_cast<uint32_t*>(o_h + ra * ldoh + c) =
+                      pack_bf16(o[j][0], o[j][1]);
+                if (rb < n)
+                  *reinterpret_cast<uint32_t*>(o_h + rb * ldoh + c) =
+                      pack_bf16(o[j][2], o[j][3]);
+              }
+            }
+          } else {
+            // the slot's dbias_h of the strip, read before the product
+            // that waits for it (into the bias' registers)
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int r = i < 2 ? ra : rb;
+                const int c = 8 * j + 2 * tq + (i & 1);
+                bv[j][i] = j < 2 * nk && c < n && r < n ? dbias_h[r * n + c]
+                                                        : 0.f;
+              }
+            }
+            // dPm = dO . v^T for the strip
+            float dp[kKeyTiles][4];
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j)
+              dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+            for (int k0 = 0; k0 < dh; k0 += 16) {
+              frag_a(dO + r0 * ldo + k0, ldo, nullptr, ahi, alo);
+#pragma unroll
+              for (int j = 0; j < kKeyTiles; ++j) {
+                if (j < 2 * nk) {
+                  frag_b_t(v + 8 * j * ldq + k0, ldq, bhi, blo);
+                  mma_split_16816(dp[j], ahi, alo, bhi, blo);
+                }
+              }
+            }
+            // dP = dPm * keep (0 on padding); dS = P * (dP - rowsum(dP * P))
+            float sa = 0.f, sb = 0.f;
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int r = i < 2 ? ra : rb;
+                const int c = 8 * j + 2 * tq + (i & 1);
+                float d = 0.f;
+                if (j < 2 * nk && r < n && c < n) {
+                  d = dp[j][i];
+                  if (dropout)
+                    d *= vgm_keep(seed, win, h, r, c, heads, n_pad,
+                                  keep_threshold, keep_scale);
+                }
+                dp[j][i] = d;
+                if (i < 2)
+                  sa += d * s[j][i];
+                else
+                  sb += d * s[j][i];
+              }
+            }
+            sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+            sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+            sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+            sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+            // dbias_h += dS; dS to shared memory for dKn
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j) {
+              if (j < 2 * nk) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const int r = i < 2 ? ra : rb;
+                  const int c = 8 * j + 2 * tq + (i & 1);
+                  dp[j][i] = s[j][i] * (dp[j][i] - (i < 2 ? sa : sb));
+                  if (r < n && c < n) dbias_h[r * n + c] = bv[j][i] + dp[j][i];
+                }
+                const int c = 8 * j + 2 * tq;
+                *reinterpret_cast<float2*>(S2 + ra * ldp + c) =
+                    make_float2(dp[j][0], dp[j][1]);
+                *reinterpret_cast<float2*>(S2 + rb * ldp + c) =
+                    make_float2(dp[j][2], dp[j][3]);
+              }
+            }
+            // dQn = dS . kn = (dS . u_k) s_k, then dQ's l2-norm backward
+            float dq[kHeadTiles][4];
+#pragma unroll
+            for (int j = 0; j < kHeadTiles; ++j)
+              dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < kStrips; ++kk) {
+              if (kk < nk) {
+                frag_a_acc(dp[2 * kk], dp[2 * kk + 1], ahi, alo);
+#pragma unroll
+                for (int j = 0; j < kHeadTiles; ++j) {
+                  if (j < dht) {
+                    frag_b(u_k + 16 * kk * ldq + 8 * j, ldq, bhi, blo);
+                    mma_split_16816(dq[j], ahi, alo, bhi, blo);
+                  }
+                }
+              }
+            }
+            l2_backward_strip(dq, r0, n, dh, sk_s, sq_s, u_q, ldq, rq_s,
+                              ok_s, part + strip * 2 * kMaxDimHead, dqkv_h,
+                              ldqh);
+          }
+        }
+        __syncthreads();
+
+        // dV = Pm^T . dO (warp w) and dKn = dS^T . qn (warp w + 4) for the
+        // strip's 16 keys, summed over the nk row steps
+        if (strip < nk) {
+          const float* at = second ? S2 : P;
+          const float* b = second ? u_q : dO;
+          const int ldb = second ? ldq : ldo;
+          float acc[kHeadTiles][4];
+#pragma unroll
+          for (int j = 0; j < kHeadTiles; ++j)
+            acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+          for (int k0 = 0; k0 < 16 * nk; k0 += 16) {
+            frag_a_t(at + k0 * ldp + r0, ldp, ahi, alo);
+#pragma unroll
+            for (int j = 0; j < kHeadTiles; ++j) {
+              if (j < dht) {
+                frag_b(b + k0 * ldb + 8 * j, ldb, bhi, blo);
+                mma_split_16816(acc[j], ahi, alo, bhi, blo);
+              }
+            }
+          }
+          if (second) {
+            // dKn = (dS^T . u_q) s_q, then dK's l2-norm backward
+            l2_backward_strip(acc, r0, n, dh, sq_s, sk_s, u_k, ldq,
+                              rq_s + kRows, ok_s + kRows,
+                              part + (strip * 2 + 1) * kMaxDimHead,
+                              dqkv_h + dh, ldqh);
+          } else {
+            // dV, rounded to T, rows < n
+            const int ra = r0 + gq;
+            const int rb = ra + 8;
+#pragma unroll
+            for (int j = 0; j < kHeadTiles; ++j) {
+              if (j < dht) {
+                const int c = 2 * dh + 8 * j + 2 * tq;
+                if (ra < n)
+                  *reinterpret_cast<uint32_t*>(dqkv_h + ra * ldqh + c) =
+                      pack_bf16(acc[j][0], acc[j][1]);
+                if (rb < n)
+                  *reinterpret_cast<uint32_t*>(dqkv_h + rb * ldqh + c) =
+                      pack_bf16(acc[j][2], acc[j][3]);
+              }
+            }
+          }
+        }
+        __syncthreads();
+
+        // dqg_h, dkg_h += sqrt(dh) * the strips' column sums, in strip
+        // order; dQ|dK|dV and O of the rows < n to the operand scratch, 16
+        // bytes a thread; dXf += [dQ|dK|dV] . Wqkv_h^T.  The next head's
+        // first pass writes none of what these read, so no barrier ends the
+        // head.
+        for (int t = tid; t < 2 * dh; t += kThreads) {
+          const int which = t / dh;
+          const int d = t % dh;
+          float acc = 0.f;
+          for (int st = 0; st < nk; ++st)
+            acc += part[(st * 2 + which) * kMaxDimHead + d];
+          slot[(which ? lay.dkg : lay.dqg) + h * dh + d] += sqrt_dh * acc;
+        }
+        const int qp = 3 * dh / 8;  // 16-byte pieces of a dQ|dK|dV row
+        for (int e = tid; e < n * (qp + dh / 8); e += kThreads) {
+          const int r = e / (qp + dh / 8);
+          const int c = e % (qp + dh / 8);
+          const size_t row = static_cast<size_t>(win) * n + r;
+          if (c < qp)
+            *reinterpret_cast<uint4*>(scr_dqkv + (row * heads + h) * 3 * dh +
+                                      8 * c) =
+                *reinterpret_cast<const uint4*>(dqkv_h + r * ldqh + 8 * c);
+          else
+            *reinterpret_cast<uint4*>(scr_o + (row * heads + h) * dh +
+                                      8 * (c - qp)) =
+                *reinterpret_cast<const uint4*>(o_h + r * ldoh +
+                                                8 * (c - qp));
+        }
+        wmma_mm<wmma::row_major, wmma::col_major>(
+            kRows, dim, 3 * dh, dqkv_h, ldqh, wq, 3 * dh, dxf, ldxf, true,
+            false);
+      } else {
+        // q|k|v = xf . Wqkv_h          (Wqkv_h: dim x 3dh, row-major)
         mm<true>(kRows, 3 * dh, dim, xf, ldx, 1, wq, 3 * dh, 1, qkv, ldq,
                  false, nullptr, nullptr, stage);
 
-      // l2-normalize q and k rows: one warp per (row, q-or-k)
-      for (int t = warp; t < 2 * kRows; t += nwarps) {
-        const int r = t >> 1;
-        const int part = t & 1;
-        float* vecp = qkv + r * ldq + part * dh;
-        float ss = 0.f;
-        for (int d = lane; d < dh; d += 32) ss += vecp[d] * vecp[d];
-        ss = warp_sum(ss);
-        const float rs = rsqrtf(fmaxf(ss, 1e-24f));
-        for (int d = lane; d < dh; d += 32) vecp[d] *= rs;
-        if (lane == 0) {
-          rq_s[part * kRows + r] = rs;
-          ok_s[part * kRows + r] = ss > 1e-24f ? 1.f : 0.f;
+        // l2-normalize q and k rows: one warp per (row, q-or-k)
+        for (int t = warp; t < 2 * kRows; t += nwarps) {
+          const int r = t >> 1;
+          const int which = t & 1;
+          float* vecp = qkv + r * ldq + which * dh;
+          float ss = 0.f;
+          for (int d = lane; d < dh; d += 32) ss += vecp[d] * vecp[d];
+          ss = warp_sum(ss);
+          const float rs = rsqrtf(fmaxf(ss, 1e-24f));
+          for (int d = lane; d < dh; d += 32) vecp[d] *= rs;
+          if (lane == 0) {
+            rq_s[which * kRows + r] = rs;
+            ok_s[which * kRows + r] = ss > 1e-24f ? 1.f : 0.f;
+          }
         }
-      }
-      for (int d = tid; d < dh; d += kThreads) {
-        const float a = sqrt_dh * q_gamma[h * dh + d];
-        const float b = sqrt_dh * k_gamma[h * dh + d];
-        sq_s[d] = a;
-        sk_s[d] = b;
-        ssk_s[d] = a * b;
-      }
-      __syncthreads();
+        for (int d = tid; d < dh; d += kThreads) {
+          const float a = sqrt_dh * q_gamma[h * dh + d];
+          const float b = sqrt_dh * k_gamma[h * dh + d];
+          sq_s[d] = a;
+          sk_s[d] = b;
+          ssk_s[d] = a * b;
+        }
+        __syncthreads();
 
-      // S = qn . kn^T = u_q diag(s_q s_k) u_k^T
-      mm<false>(kRows, kRows, dh, u_q, ldq, 1, u_k, 1, ldq, P, kLdS, false,
-                ssk_s, nullptr, stage);
+        float* dwout_h = slot + lay.dwout + static_cast<size_t>(h) * dh * dim;
+        float* dwqkv_h =
+            slot + lay.dwqkv + static_cast<size_t>(h) * dim * 3 * dh;
+        // S = qn . kn^T = u_q diag(s_q s_k) u_k^T
+        mm<false>(kRows, kRows, dh, u_q, ldq, 1, u_k, 1, ldq, P, kLdS, false,
+                  ssk_s, nullptr, stage);
 
-      // + bias, softmax with this head's own row max; Pm = P * keep
-      const float* bh = bias + static_cast<size_t>(h) * n * n;
-      for (int r = warp; r < kRows; r += nwarps) {
-        float* pr = P + r * kLdS;
-        float s0 = -1e30f, s1 = -1e30f;
-        if (lane < n) s0 = pr[lane] + (r < n ? bh[r * n + lane] : 0.f);
-        if (lane + 32 < n)
-          s1 = pr[lane + 32] + (r < n ? bh[r * n + lane + 32] : 0.f);
-        const float m = warp_max(fmaxf(s0, s1));
-        const float e0 = expf(s0 - m);
-        const float e1 = expf(s1 - m);
-        const float den = warp_sum(e0 + e1);
-        const float p0 = e0 / den;
-        const float p1 = e1 / den;
-        float k0 = 1.f, k1 = 1.f;
-        if (dropout && r < n) {
-          if (lane < n)
-            k0 = vgm_keep(seed, win, h, r, lane, heads, n_pad, keep_threshold,
-                          keep_scale);
+        // + bias, softmax with this head's own row max; Pm = P * keep
+        for (int r = warp; r < kRows; r += nwarps) {
+          float* pr = P + r * kLdS;
+          float s0 = -1e30f, s1 = -1e30f;
+          if (lane < n) s0 = pr[lane] + (r < n ? bh[r * n + lane] : 0.f);
           if (lane + 32 < n)
-            k1 = vgm_keep(seed, win, h, r, lane + 32, heads, n_pad,
-                          keep_threshold, keep_scale);
+            s1 = pr[lane + 32] + (r < n ? bh[r * n + lane + 32] : 0.f);
+          const float m = warp_max(fmaxf(s0, s1));
+          const float e0 = expf(s0 - m);
+          const float e1 = expf(s1 - m);
+          const float den = warp_sum(e0 + e1);
+          const float p0 = e0 / den;
+          const float p1 = e1 / den;
+          float k0 = 1.f, k1 = 1.f;
+          if (dropout && r < n) {
+            if (lane < n)
+              k0 = vgm_keep(seed, win, h, r, lane, heads, n_pad,
+                            keep_threshold, keep_scale);
+            if (lane + 32 < n)
+              k1 = vgm_keep(seed, win, h, r, lane + 32, heads, n_pad,
+                            keep_threshold, keep_scale);
+          }
+          pr[lane] = p0;
+          pr[lane + 32] = p1;
+          S2[r * kLdS + lane] = p0 * k0;
+          S2[r * kLdS + lane + 32] = p1 * k1;
         }
-        pr[lane] = p0;
-        pr[lane + 32] = p1;
-        S2[r * kLdS + lane] = p0 * k0;
-        S2[r * kLdS + lane + 32] = p1 * k1;
-      }
-      __syncthreads();
+        __syncthreads();
 
-      // dO = dY . Wout_h^T           (Wout_h: dh x dim, row-major)
-      if constexpr (kTC)
-        wmma_mm<wmma::row_major, wmma::col_major>(
-            kRows, dh, dim, dy_h, ldx, wo, dim, dO, ldo, false);
-      else
+        // dO = dY . Wout_h^T           (Wout_h: dh x dim, row-major)
         mm<true>(n, dh, dim, dys, ldx, 1, wo, 1, dim, dO, ldo, false,
                  nullptr, nullptr, stage);
-      // O = Pm . v, rounded to T, into the dQ slot for now
-      mm<false>(n, dh, n, S2, kLdS, 1, v, ldq, 1, dqkv, ldq, false, nullptr,
-                nullptr, stage);
-      // dWout_h += O^T . dY
-      float* dwout_h = slot + lay.dwout + static_cast<size_t>(h) * dh * dim;
-      if constexpr (kTC) {
-        for (int e = tid; e < n * dh; e += kThreads)
-          o_h[(e / dh) * ldoh + e % dh] =
-              __float2bfloat16(dqkv[(e / dh) * ldq + e % dh]);
-        __syncthreads();
-        wmma_mm<wmma::col_major, wmma::row_major>(
-            dh, dim, kRows, o_h, ldoh, dy_h, ldx, dwout_h, dim, true);
-      } else {
+        // O = Pm . v, rounded to T, into the dQ slot for now
+        mm<false>(n, dh, n, S2, kLdS, 1, v, ldq, 1, dqkv, ldq, false,
+                  nullptr, nullptr, stage);
+        // dWout_h += O^T . dY
         round_buffer<T>(dqkv, ldq, n, dh);
         mm<false>(dh, dim, n, dqkv, 1, ldq, dys, ldx, 1, dwout_h, dim, true,
                   nullptr, nullptr, stage);
-      }
-      // dV = Pm^T . dO
-      mm<false>(n, dh, n, S2, 1, kLdS, dO, ldo, 1, dqkv + 2 * dh, ldq, false,
-                nullptr, nullptr, stage);
-      // dPm = dO . v^T  (over Pm, which is no longer read)
-      mm<false>(n, n, dh, dO, ldo, 1, v, 1, ldq, S2, kLdS, false, nullptr,
-                nullptr, stage);
+        // dV = Pm^T . dO
+        mm<false>(n, dh, n, S2, 1, kLdS, dO, ldo, 1, dqkv + 2 * dh, ldq,
+                  false, nullptr, nullptr, stage);
+        // dPm = dO . v^T  (over Pm, which is no longer read)
+        mm<false>(n, n, dh, dO, ldo, 1, v, 1, ldq, S2, kLdS, false, nullptr,
+                  nullptr, stage);
 
-      // dP = dPm * keep; dS = P * (dP - rowsum(dP * P)); dbias_h += dS
-      float* dbias_h = slot + lay.dbias + static_cast<size_t>(h) * n * n;
-      for (int r = warp; r < kRows; r += nwarps) {
-        float* sr = S2 + r * kLdS;
-        const float* pr = P + r * kLdS;
-        float d0 = 0.f, d1 = 0.f;
-        if (r < n) {
-          if (lane < n) d0 = sr[lane];
-          if (lane + 32 < n) d1 = sr[lane + 32];
-          if (dropout) {
-            if (lane < n)
-              d0 *= vgm_keep(seed, win, h, r, lane, heads, n_pad,
-                             keep_threshold, keep_scale);
-            if (lane + 32 < n)
-              d1 *= vgm_keep(seed, win, h, r, lane + 32, heads, n_pad,
-                             keep_threshold, keep_scale);
+        // dP = dPm * keep; dS = P * (dP - rowsum(dP * P)); dbias_h += dS
+        for (int r = warp; r < kRows; r += nwarps) {
+          float* sr = S2 + r * kLdS;
+          const float* pr = P + r * kLdS;
+          float d0 = 0.f, d1 = 0.f;
+          if (r < n) {
+            if (lane < n) d0 = sr[lane];
+            if (lane + 32 < n) d1 = sr[lane + 32];
+            if (dropout) {
+              if (lane < n)
+                d0 *= vgm_keep(seed, win, h, r, lane, heads, n_pad,
+                               keep_threshold, keep_scale);
+              if (lane + 32 < n)
+                d1 *= vgm_keep(seed, win, h, r, lane + 32, heads, n_pad,
+                               keep_threshold, keep_scale);
+            }
+          }
+          const float p0 = pr[lane];
+          const float p1 = pr[lane + 32];
+          const float row = warp_sum(d0 * p0 + d1 * p1);
+          const float s0 = p0 * (d0 - row);
+          const float s1 = p1 * (d1 - row);
+          sr[lane] = s0;
+          sr[lane + 32] = s1;
+          if (r < n) {
+            if (lane < n) dbias_h[r * n + lane] += s0;
+            if (lane + 32 < n) dbias_h[r * n + lane + 32] += s1;
           }
         }
-        const float p0 = pr[lane];
-        const float p1 = pr[lane + 32];
-        const float row = warp_sum(d0 * p0 + d1 * p1);
-        const float s0 = p0 * (d0 - row);
-        const float s1 = p1 * (d1 - row);
-        sr[lane] = s0;
-        sr[lane + 32] = s1;
-        if (r < n) {
-          if (lane < n) dbias_h[r * n + lane] += s0;
-          if (lane + 32 < n) dbias_h[r * n + lane + 32] += s1;
-        }
-      }
-      __syncthreads();
-
-      // dQn = dS . kn = (dS . u_k) s_k;  dKn = dS^T . qn = (dS^T . u_q) s_q
-      mm<false>(n, dh, n, S2, kLdS, 1, u_k, ldq, 1, dqkv, ldq, false,
-                nullptr, sk_s, stage);
-      mm<false>(n, dh, n, S2, 1, kLdS, u_q, ldq, 1, dqkv + dh, ldq, false,
-                nullptr, sq_s, stage);
-
-      // dqg_h += sqrt(dh) sum_rows dQn * u_q (same for k)
-      for (int t = tid; t < 2 * dh; t += kThreads) {
-        const int part = t / dh;
-        const int d = t % dh;
-        float acc = 0.f;
-        for (int r = 0; r < n; ++r)
-          acc += dqkv[r * ldq + part * dh + d] * qkv[r * ldq + part * dh + d];
-        slot[(part ? lay.dkg : lay.dqg) + h * dh + d] += sqrt_dh * acc;
-      }
-      __syncthreads();
-
-      // l2-normalize backward, one warp per (row, q-or-k):
-      // dQ = (dU - u <dU, u>) / |q| with dU = dQn s_q
-      for (int t = warp; t < 2 * n; t += nwarps) {
-        const int r = t >> 1;
-        const int part = t & 1;
-        float* dr = dqkv + r * ldq + part * dh;
-        const float* ur = qkv + r * ldq + part * dh;
-        const float* sc = part ? sk_s : sq_s;
-        float proj = 0.f;
-        for (int d = lane; d < dh; d += 32) proj += dr[d] * sc[d] * ur[d];
-        proj = warp_sum(proj) * ok_s[part * kRows + r];
-        const float rs = rq_s[part * kRows + r];
-        for (int d = lane; d < dh; d += 32) {
-          const float val = rs * (dr[d] * sc[d] - ur[d] * proj);
-          if constexpr (kTC)
-            dqkv_h[r * ldqh + part * dh + d] = __float2bfloat16(val);
-          else
-            dr[d] = round_to<T>(val);
-        }
-      }
-      if constexpr (kTC) {
-        for (int e = tid; e < n * dh; e += kThreads)
-          dqkv_h[(e / dh) * ldqh + 2 * dh + e % dh] =
-              __float2bfloat16(dqkv[(e / dh) * ldq + 2 * dh + e % dh]);
         __syncthreads();
-        // dWqkv_h += xf^T . [dQ|dK|dV];  dXf += [dQ|dK|dV] . Wqkv_h^T
-        wmma_mm<wmma::col_major, wmma::row_major>(
-            dim, 3 * dh, kRows, xf_h, ldx, dqkv_h, ldqh,
-            slot + lay.dwqkv + static_cast<size_t>(h) * dim * 3 * dh, 3 * dh,
-            true);
-        wmma_mm<wmma::row_major, wmma::col_major>(
-            kRows, dim, 3 * dh, dqkv_h, ldqh, wq, 3 * dh, dxf, ldxf, true);
-      } else {
+
+        // dQn = dS . kn = (dS . u_k) s_k;  dKn = dS^T . qn = (dS^T . u_q) s_q
+        mm<false>(n, dh, n, S2, kLdS, 1, u_k, ldq, 1, dqkv, ldq, false,
+                  nullptr, sk_s, stage);
+        mm<false>(n, dh, n, S2, 1, kLdS, u_q, ldq, 1, dqkv + dh, ldq, false,
+                  nullptr, sq_s, stage);
+
+        // dqg_h += sqrt(dh) sum_rows dQn * u_q (same for k)
+        for (int t = tid; t < 2 * dh; t += kThreads) {
+          const int which = t / dh;
+          const int d = t % dh;
+          float acc = 0.f;
+          for (int r = 0; r < n; ++r)
+            acc += dqkv[r * ldq + which * dh + d] *
+                   qkv[r * ldq + which * dh + d];
+          slot[(which ? lay.dkg : lay.dqg) + h * dh + d] += sqrt_dh * acc;
+        }
+        __syncthreads();
+
+        // l2-normalize backward, one warp per (row, q-or-k):
+        // dQ = (dU - u <dU, u>) / |q| with dU = dQn s_q
+        for (int t = warp; t < 2 * n; t += nwarps) {
+          const int r = t >> 1;
+          const int which = t & 1;
+          float* dr = dqkv + r * ldq + which * dh;
+          const float* ur = qkv + r * ldq + which * dh;
+          const float* sc = which ? sk_s : sq_s;
+          float proj = 0.f;
+          for (int d = lane; d < dh; d += 32) proj += dr[d] * sc[d] * ur[d];
+          proj = warp_sum(proj) * ok_s[which * kRows + r];
+          const float rs = rq_s[which * kRows + r];
+          for (int d = lane; d < dh; d += 32)
+            dr[d] = round_to<T>(rs * (dr[d] * sc[d] - ur[d] * proj));
+        }
         __syncthreads();
         round_buffer<T>(dqkv + 2 * dh, ldq, n, dh);
-        mm<false>(dim, 3 * dh, n, xf, 1, ldx, dqkv, ldq, 1,
-                  slot + lay.dwqkv + static_cast<size_t>(h) * dim * 3 * dh,
-                  3 * dh, true, nullptr, nullptr, stage);
+        // dWqkv_h += xf^T . [dQ|dK|dV];  dXf += [dQ|dK|dV] . Wqkv_h^T
+        mm<false>(dim, 3 * dh, n, xf, 1, ldx, dqkv, ldq, 1, dwqkv_h, 3 * dh,
+                  true, nullptr, nullptr, stage);
         mm<true>(n, dim, 3 * dh, dqkv, ldq, 1, wq, 1, 3 * dh, dxf, ldxf,
                  true, nullptr, nullptr, stage);
       }
     }
+    if constexpr (kTC) __syncthreads();  // the last head's dXf is complete
 
     // ---- FiLM grads and the LayerNorm VJP ----
     float* dgw = dgamma_w + static_cast<size_t>(win) * dim;
@@ -611,10 +1116,11 @@ template <typename T, bool kTC>
 int launch(const void* x, const void* gamma, const void* beta,
            const void* wqkv, const void* q_gamma, const void* k_gamma,
            const void* wout, const void* bias, const void* dy, void* dx,
-           void* dgamma_w, void* dbeta_w, void* grads, void* slots, int bw,
-           int n, int dim, int heads, int dh, int windows_per_sample,
-           int has_film, int num_slots, unsigned seed, unsigned threshold,
-           float scale, cudaStream_t stream) {
+           void* dgamma_w, void* dbeta_w, void* grads, void* slots,
+           void* scratch, int bw, int n, int dim, int heads, int dh,
+           int windows_per_sample, int has_film, int num_slots,
+           unsigned seed, unsigned threshold, float scale,
+           cudaStream_t stream) {
   const size_t smem = make_plan<kTC>(dim, dh).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       window_attention_bwd_kernel<T, kTC>,
@@ -629,50 +1135,79 @@ int launch(const void* x, const void* gamma, const void* beta,
       static_cast<const T*>(wout), static_cast<const float*>(bias),
       static_cast<const T*>(dy), static_cast<T*>(dx),
       static_cast<float*>(dgamma_w), static_cast<float*>(dbeta_w),
-      static_cast<float*>(slots), bw, per, n, dim, heads, dh,
-      windows_per_sample, has_film, seed, threshold, scale);
+      static_cast<float*>(slots), static_cast<__nv_bfloat16*>(scratch), bw,
+      per, n, dim, heads, dh, windows_per_sample, has_film, seed, threshold,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t floats = make_slot(n, dim, heads, dh).floats;
+  // kTC's slots hold the output's dqg | dkg | dbias
+  const size_t floats = make_slot(n, dim, heads, dh, !kTC).floats;
+  const size_t at = kTC ? make_slot(n, dim, heads, dh, true).dqg : 0;
   const int blocks = static_cast<int>((floats + 255) / 256);
   sum_slots_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(slots), static_cast<float*>(grads), ctas,
+      static_cast<const float*>(slots), static_cast<float*>(grads) + at, ctas,
       floats);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool tensor_core_path(int dim, int dh, int is_bf16) {
+  return is_bf16 && dim % 16 == 0 && dh % 16 == 0;
+}
+
 }  // namespace
 
-// Floats of one gradient slot, which is also the size of `grads`:
-// [dWqkv (heads, dim, 3dh) | dWout (heads, dh, dim) | dqg (heads, dh) |
-//  dkg (heads, dh) | dbias (heads, n, n) | padding to a multiple of 8].
-extern "C" long vgm_window_attention_bwd_slot_floats(int n, int dim,
+// Floats of `grads`: [dWqkv (heads, dim, 3dh) | dWout (heads, dh, dim) |
+// dqg (heads, dh) | dkg (heads, dh) | dbias (heads, n, n) | padding to a
+// multiple of 8].
+extern "C" long vgm_window_attention_bwd_grad_floats(int n, int dim,
                                                      int heads, int dh) {
-  return static_cast<long>(make_slot(n, dim, heads, dh).floats);
+  return static_cast<long>(make_slot(n, dim, heads, dh, true).floats);
+}
+
+// Floats of one gradient slot: the layout of `grads`, or on the
+// tensor-core path its dqg | dkg | dbias alone.
+extern "C" long vgm_window_attention_bwd_slot_floats(int n, int dim,
+                                                     int heads, int dh,
+                                                     int is_bf16) {
+  return static_cast<long>(
+      make_slot(n, dim, heads, dh, !tensor_core_path(dim, dh, is_bf16))
+          .floats);
+}
+
+// bf16 elements of the weight-gradient operands the tensor-core path
+// writes (xf, dQ|dK|dV, O of the bw * n rows); 0 on the other paths.
+extern "C" long vgm_window_attention_bwd_scratch_elems(int bw, int n,
+                                                       int dim, int heads,
+                                                       int dh, int is_bf16) {
+  if (!tensor_core_path(dim, dh, is_bf16)) return 0;
+  return static_cast<long>(bw) * n * (dim + 4L * heads * dh);
 }
 
 // Shared memory one CTA needs; above 232,448 bytes the shape is refused.
 extern "C" long vgm_window_attention_bwd_smem_bytes(int dim, int dh,
                                                     int is_bf16) {
-  const bool tc = is_bf16 && dim % 16 == 0 && dh % 16 == 0;
-  return static_cast<long>(tc ? make_plan<true>(dim, dh).bytes
-                              : make_plan<false>(dim, dh).bytes);
+  return static_cast<long>(tensor_core_path(dim, dh, is_bf16)
+                               ? make_plan<true>(dim, dh).bytes
+                               : make_plan<false>(dim, dh).bytes);
 }
 
 // Inputs as for vgm_window_attention_fwd, plus dy (bw, n, dim) in x's type.
 // Outputs: dx (bw, n, dim) in x's type; dgamma_w, dbeta_w f32 (bw, dim),
-// zero without FiLM; grads f32 in the slot layout above.  slots: f32
-// scratch of num_slots slots; the kernel runs min(num_slots, bw) CTAs.  All
+// zero without FiLM; grads f32 in the layout above.  slots: f32 scratch of
+// num_slots slots; the kernel runs min(num_slots, bw) CTAs.  All
 // contiguous.  bf16 with dim and dh multiples of 16 runs the projections
-// on the tensor cores.  Launches on `stream` and returns cudaGetLastError().
+// and the n x n products on the tensor cores and leaves dWqkv and dWout to
+// vgm_window_attention_wgrad: it writes their operands to scratch (bf16, of
+// vgm_window_attention_bwd_scratch_elems) and the rest of grads.  Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int vgm_window_attention_bwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* q_gamma, const void* k_gamma, const void* wout,
     const void* bias, const void* dy, void* dx, void* dgamma_w,
-    void* dbeta_w, void* grads, void* slots, int bw, int n, int dim,
-    int heads, int dh, int windows_per_sample, int has_film, int is_bf16,
-    int num_slots, int seed, int keep_threshold, float keep_scale,
-    void* stream) {
+    void* dbeta_w, void* grads, void* slots, void* scratch, int bw, int n,
+    int dim, int heads, int dh, int windows_per_sample, int has_film,
+    int is_bf16, int num_slots, int seed, int keep_threshold,
+    float keep_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bw < 1 || n < 1 || n > kRows || dim < 1 || dim > kMaxDim || dh < 1 ||
       dh > kMaxDimHead || num_slots < 1 ||
@@ -681,18 +1216,18 @@ extern "C" int vgm_window_attention_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned sd = static_cast<unsigned>(seed);
   const unsigned thr = static_cast<unsigned>(keep_threshold);
-  if (is_bf16 && dim % 16 == 0 && dh % 16 == 0)
+  if (tensor_core_path(dim, dh, is_bf16))
     return launch<__nv_bfloat16, true>(
         x, gamma, beta, wqkv, q_gamma, k_gamma, wout, bias, dy, dx, dgamma_w,
-        dbeta_w, grads, slots, bw, n, dim, heads, dh, windows_per_sample,
-        has_film, num_slots, sd, thr, keep_scale, st);
+        dbeta_w, grads, slots, scratch, bw, n, dim, heads, dh,
+        windows_per_sample, has_film, num_slots, sd, thr, keep_scale, st);
   if (is_bf16)
     return launch<__nv_bfloat16, false>(
         x, gamma, beta, wqkv, q_gamma, k_gamma, wout, bias, dy, dx, dgamma_w,
-        dbeta_w, grads, slots, bw, n, dim, heads, dh, windows_per_sample,
-        has_film, num_slots, sd, thr, keep_scale, st);
+        dbeta_w, grads, slots, scratch, bw, n, dim, heads, dh,
+        windows_per_sample, has_film, num_slots, sd, thr, keep_scale, st);
   return launch<float, false>(
       x, gamma, beta, wqkv, q_gamma, k_gamma, wout, bias, dy, dx, dgamma_w,
-      dbeta_w, grads, slots, bw, n, dim, heads, dh, windows_per_sample,
-      has_film, num_slots, sd, thr, keep_scale, st);
+      dbeta_w, grads, slots, scratch, bw, n, dim, heads, dh,
+      windows_per_sample, has_film, num_slots, sd, thr, keep_scale, st);
 }

@@ -87,13 +87,17 @@ def attention(p: Attention, x: Tensor, cond: Optional[Tensor],
 def attention_core(x: Tensor, gamma: Tensor, beta: Tensor, wqkv: Tensor,
                    wout: Tensor, qg: Tensor, kg: Tensor, bias: Tensor, *,
                    windows_per_sample: int, has_film: bool,
-                   dropout_mask: Optional[Tensor] = None) -> Tensor:
+                   dropout_mask: Optional[Tensor] = None,
+                   taps: Optional[dict] = None) -> Tensor:
     """``attention`` on the CUDA kernels' inputs (``ops/cuda/attention.py::
     kernel_inputs``): gamma/beta (Bw / windows_per_sample, dim) f32, used
     when ``has_film``; wqkv (heads, dim, 3*dh) and wout (heads, dh, dim) in
     x's dtype; qg, kg (heads, dh) and bias (heads, n, n) f32.  The plain
     version that the kernels' gradients are held against, through
-    autograd."""
+    autograd.  ``taps``, when given, receives the intermediates that the
+    weight gradients are taken from: "xf" (Bw, n, dim) after LN and FiLM,
+    "qkv" (Bw, h, n, 3dh) and "o" (Bw, h, n, dh) before the
+    out-projection."""
     bw, n, _ = x.shape
     heads, _, three_dh = wqkv.shape
     dh = three_dh // 3
@@ -112,4 +116,6 @@ def attention_core(x: Tensor, gamma: Tensor, beta: Tensor, wqkv: Tensor,
     if dropout_mask is not None:
         attn = attn * dropout_mask.to(attn.dtype)
     out = torch.matmul(attn.float(), v.float()).to(v.dtype)
+    if taps is not None:
+        taps.update(xf=x, qkv=qkv, o=out)
     return torch.einsum("bhnd,hdc->bnc", out, wout)

@@ -4,6 +4,8 @@ kernels under ``csrc/``, their ctypes binding and their launch counters.
 * ``window_attention_fwd.cu`` (K1, the forward, with in-kernel dropout);
 * ``window_attention_bwd.cu`` (K3, the backward, with the same dropout
   mask regenerated from the seed);
+* ``window_attention_wgrad.cu`` (K3-w: on K3's bf16 tensor-core path, the
+  weight gradients dWqkv and dWout from the operands K3 writes);
 * ``dropout_keep_mask.cu`` (K1-d alone: writes the keep mask, so that the
   card can compare it with ``ops/dropout.py::keep_mask``).
 
@@ -42,6 +44,7 @@ MAX_SMEM = 232448
 # kernel.  Only the launches below add to them.
 launches = 0          # K1, the forward
 bwd_launches = 0      # K3, the backward
+wgrad_launches = 0    # K3-w, the weight gradients of K3's tensor-core path
 # K1 and K3 launches with dropout on: each evaluates the keep hash of
 # csrc/dropout_hash.cuh (K1-d) inline for every score
 hash_launches = 0
@@ -49,8 +52,10 @@ mask_launches = 0     # the standalone keep-mask kernel
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches, hash_launches, mask_launches
-    launches = bwd_launches = hash_launches = mask_launches = 0
+    global launches, bwd_launches, wgrad_launches, hash_launches
+    global mask_launches
+    launches = bwd_launches = wgrad_launches = hash_launches = 0
+    mask_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -135,23 +140,42 @@ def window_attention_fwd(x: Tensor, k: KernelInputs, seed: int,
     return out
 
 
-def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
-                         rate: float) -> Tuple[Tensor, ...]:
-    """K3: (dx, dgamma_w, dbeta_w, dwqkv, dwout, dqg, dkg, dbias) with
-    per-window dgamma_w/dbeta_w (Bw, dim) and f32 weight grads in the
-    layouts of ``KernelInputs``."""
+class WgradOperands(NamedTuple):
+    """What K3's tensor-core path writes for K3-w: the T-rounded operands
+    of the weight-gradient products, rows < n of every window (R = Bw * n
+    rows), bf16: xf (R, dim), dqkv = dQ|dK|dV (R, heads * 3dh) and o (R,
+    heads * dh), head h at columns h * 3dh and h * dh."""
+    xf: Tensor
+    dqkv: Tensor
+    o: Tensor
+
+
+def window_attention_bwd_kernel(x: Tensor, k: KernelInputs, dy: Tensor,
+                                seed: int, rate: float
+                                ) -> Tuple[Tuple[Tensor, ...],
+                                           Optional[WgradOperands]]:
+    """K3 alone: ((dx, dgamma_w, dbeta_w, grads), operands).  grads is
+    f32 (dwqkv | dwout | dqg | dkg | dbias | padding); on the tensor-core
+    path (bf16, dim and dh multiples of 16) K3 leaves its dwqkv | dwout
+    block to K3-w and returns the operands K3-w takes, else None."""
     threshold, scale = keep_constants(rate)
     bw, n, dim = x.shape
     heads, _, three_dh = k.wqkv.shape
     dh = three_dh // 3
+    is_bf16 = int(x.dtype == torch.bfloat16)
     lib = library.load()
-    floats = lib.vgm_window_attention_bwd_slot_floats(n, dim, heads, dh)
+    floats = lib.vgm_window_attention_bwd_slot_floats(n, dim, heads, dh,
+                                                      is_bf16)
     # one CTA (and one f32 gradient slot) per SM; each CTA walks a
     # contiguous chunk of windows
     num_slots = min(bw, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     slots = torch.empty(num_slots, floats, device=x.device)
-    grads = torch.empty(floats, device=x.device)
+    grads = torch.empty(lib.vgm_window_attention_bwd_grad_floats(
+        n, dim, heads, dh), device=x.device)
+    scratch = torch.empty(lib.vgm_window_attention_bwd_scratch_elems(
+        bw, n, dim, heads, dh, is_bf16), dtype=torch.bfloat16,
+        device=x.device)
     dx = torch.empty_like(x)
     dgw = torch.empty(bw, dim, device=x.device)
     dbw = torch.empty(bw, dim, device=x.device)
@@ -160,12 +184,72 @@ def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
         k.wqkv.data_ptr(), k.qg.data_ptr(), k.kg.data_ptr(),
         k.wout.data_ptr(), k.bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dgw.data_ptr(), dbw.data_ptr(), grads.data_ptr(), slots.data_ptr(),
-        bw, n, dim, heads, dh, k.windows_per_sample, int(k.has_film),
-        int(x.dtype == torch.bfloat16), num_slots, seed, threshold, scale,
+        scratch.data_ptr(), bw, n, dim, heads, dh, k.windows_per_sample,
+        int(k.has_film), is_bf16, num_slots, seed, threshold, scale,
         library.stream(x)), "window_attention_bwd")
     global bwd_launches, hash_launches
     bwd_launches += 1
     hash_launches += int(threshold != 0)
+    operands = None
+    if scratch.numel():
+        rows = bw * n
+        xf, dqkv, o = scratch.split([rows * dim, rows * heads * three_dh,
+                                     rows * heads * dh])
+        operands = WgradOperands(xf.view(rows, dim), dqkv.view(rows, -1),
+                                 o.view(rows, -1))
+    return (dx, dgw, dbw, grads), operands
+
+
+def window_attention_wgrad(ops: WgradOperands, dy: Tensor, heads: int,
+                           out: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """K3-w: (dwqkv (heads, dim, 3dh), dwout (heads, dh, dim)) f32 from
+    K3's operands and dy (R, dim) in bf16, into ``out`` (f32, at least
+    4 * heads * dim * dh, contiguous) when given.  For CPU tensors its
+    plain version."""
+    rows, dim = ops.xf.shape
+    dh = ops.o.shape[1] // heads
+    if ops.xf.device.type == "cpu":
+        return window_attention_wgrad_reference(ops, dy, heads)
+    for t in (*ops, dy):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 or not (
+                t.is_contiguous()):
+            raise ValueError("window_attention_wgrad: contiguous bf16 CUDA "
+                             "tensors only")
+    if dim % 16 or dh % 16 or ops.dqkv.shape != (rows, 3 * heads * dh) or (
+            ops.o.shape != (rows, heads * dh) or dy.shape != (rows, dim)):
+        raise ValueError(f"window_attention_wgrad: shapes {ops.xf.shape}, "
+                         f"{ops.dqkv.shape}, {ops.o.shape}, {dy.shape} for "
+                         f"{heads} heads")
+    lib = library.load()
+    size = 4 * heads * dim * dh
+    if out is None:
+        out = torch.empty(size, device=dy.device)
+    partials = torch.empty(lib.vgm_window_attention_wgrad_partial_floats(
+        rows, dim, heads, dh), device=dy.device)
+    library.check(lib.vgm_window_attention_wgrad(
+        ops.xf.data_ptr(), ops.dqkv.data_ptr(), ops.o.data_ptr(),
+        dy.data_ptr(), out.data_ptr(), partials.data_ptr(), rows, dim, heads,
+        dh, library.stream(dy)), "window_attention_wgrad")
+    global wgrad_launches
+    wgrad_launches += 1
+    dwqkv, dwout = out[:size].split([3 * heads * dim * dh, heads * dh * dim])
+    return dwqkv.view(heads, dim, 3 * dh), dwout.view(heads, dh, dim)
+
+
+def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
+                         rate: float) -> Tuple[Tensor, ...]:
+    """K3, and K3-w on its tensor-core path: (dx, dgamma_w, dbeta_w,
+    dwqkv, dwout, dqg, dkg, dbias) with per-window dgamma_w/dbeta_w (Bw,
+    dim) and f32 weight grads in the layouts of ``KernelInputs``."""
+    bw, n, dim = x.shape
+    heads, _, three_dh = k.wqkv.shape
+    dh = three_dh // 3
+    (dx, dgw, dbw, grads), operands = window_attention_bwd_kernel(
+        x, k, dy, seed, rate)
+    if operands is not None:
+        window_attention_wgrad(operands, dy.view(bw * n, dim), heads,
+                               out=grads)
     sizes = [heads * dim * three_dh, heads * dh * dim, heads * dh,
              heads * dh, heads * n * n]
     dwqkv, dwout, dqg, dkg, dbias = grads[:sum(sizes)].split(sizes)
@@ -306,3 +390,43 @@ def window_attention_bwd_reference(x: Tensor, k: KernelInputs, dy: Tensor,
     dwqkv, dwout, dqg, dkg, dbias = rest
     return (dx, dgw.float(), dbw.float(), dwqkv.float(), dwout.float(),
             dqg, dkg, dbias)
+
+
+def window_attention_wgrad_reference(ops: WgradOperands, dy: Tensor,
+                                     heads: int) -> Tuple[Tensor, Tensor]:
+    """The plain version of K3-w: (dwqkv (heads, dim, 3dh), dwout (heads,
+    dh, dim)) summed over the rows in f32."""
+    rows = ops.xf.shape[0]
+    dwqkv = torch.einsum("rc,rhe->hce", ops.xf.float(),
+                         ops.dqkv.float().view(rows, heads, -1))
+    dwout = torch.einsum("rhd,rc->hdc", ops.o.float().view(rows, heads, -1),
+                         dy.float())
+    return dwqkv, dwout
+
+
+def window_attention_bwd_operands_reference(x: Tensor, k: KernelInputs,
+                                            dy: Tensor, seed: int,
+                                            rate: float) -> WgradOperands:
+    """The plain version of the operands K3's tensor-core path writes for
+    K3-w, in x's dtype, by autograd through the plain forward with the same
+    keep mask: xf and O as the forward computes them, dQ|dK|dV as the
+    gradient of its q|k|v."""
+    bw, n, dim = x.shape
+    heads = k.wqkv.shape[0]
+    taps = {}
+    with torch.enable_grad():
+        wqkv = k.wqkv.detach().requires_grad_()
+        mask = (keep_mask(seed, bw, heads, n, rate, device=x.device)
+                if rate > 0.0 else None)
+        out = attention_core(x.detach(), k.gamma, k.beta, wqkv, k.wout,
+                             k.qg, k.kg, k.bias,
+                             windows_per_sample=k.windows_per_sample,
+                             has_film=k.has_film, dropout_mask=mask,
+                             taps=taps)
+        (dqkv,) = torch.autograd.grad(out, taps["qkv"], dy)
+
+    def rows(t):  # (Bw, heads, n, e) -> (Bw * n, heads * e)
+        return t.detach().transpose(1, 2).reshape(bw * n, -1)
+
+    return WgradOperands(taps["xf"].detach().reshape(bw * n, dim),
+                         rows(dqkv), rows(taps["o"]))

@@ -97,7 +97,9 @@ def load() -> ctypes.CDLL:
         lib.vgm_window_attention_fwd.argtypes = (
             [ptr] * 9 + [i32] * 8 + [i32, i32, f32, ptr])
         lib.vgm_window_attention_bwd.argtypes = (
-            [ptr] * 14 + [i32] * 9 + [i32, i32, f32, ptr])
+            [ptr] * 15 + [i32] * 9 + [i32, i32, f32, ptr])
+        lib.vgm_window_attention_wgrad.argtypes = [ptr] * 6 + [i32] * 4 + [
+            ptr]
         lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
         lib.vgm_fused_mbconv.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
         lib.vgm_perhead_attention.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
@@ -112,7 +114,8 @@ def load() -> ctypes.CDLL:
         lib.vgm_outproj_attention.argtypes = [ptr] * 5 + [i32] * 13 + [ptr]
         lib.vgm_headpack_attention.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
         for fn in (lib.vgm_window_attention_fwd, lib.vgm_window_attention_bwd,
-                   lib.vgm_dropout_keep_mask, lib.vgm_fused_mbconv,
+                   lib.vgm_window_attention_wgrad, lib.vgm_dropout_keep_mask,
+                   lib.vgm_fused_mbconv,
                    lib.vgm_perhead_attention,
                    lib.vgm_maxvit_layer_attention,
                    lib.vgm_headmajor_attention,
@@ -137,8 +140,15 @@ def load() -> ctypes.CDLL:
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_active_clusters.argtypes = [i32] * 7
         lib.vgm_maxvit_layer_attention_active_clusters.restype = ctypes.c_int
-        lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 4
-        lib.vgm_window_attention_bwd_slot_floats.restype = ctypes.c_long
+        lib.vgm_window_attention_bwd_grad_floats.argtypes = [i32] * 4
+        lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 5
+        lib.vgm_window_attention_bwd_scratch_elems.argtypes = [i32] * 6
+        lib.vgm_window_attention_wgrad_partial_floats.argtypes = [i32] * 4
+        for fn in (lib.vgm_window_attention_bwd_grad_floats,
+                   lib.vgm_window_attention_bwd_slot_floats,
+                   lib.vgm_window_attention_bwd_scratch_elems,
+                   lib.vgm_window_attention_wgrad_partial_floats):
+            fn.restype = ctypes.c_long
         lib.vgm_window_attention_bwd_smem_bytes.argtypes = [i32] * 3
         lib.vgm_window_attention_bwd_smem_bytes.restype = ctypes.c_long
         lib.vgm_fused_mbconv_row_tile.argtypes = [i32] * 3
