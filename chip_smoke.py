@@ -16,10 +16,13 @@ family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
-2. forward kernel vs plain: flagship, 3-head and diverging-score cases in
-   f32 and bf16; kernel and plain times at the flagship shape;
+2. forward kernel vs plain: flagship, 3-head, diverging-score and window-5
+   (29 tokens) cases in f32 and bf16, bit-identical on a second launch;
+   kernel and plain times at the flagship shape beside the bound;
 2b. dropout keep mask: the CUDA hash bit-equal to its plain version;
-2c. forward kernel with dropout vs plain with the same mask;
+2c. forward kernel with dropout vs plain with the same mask, in the
+   training cases (windows of 7 and 5), bit-identical on a second launch;
+   kernel and plain times at Bw 1,440;
 2d. backward kernels vs autograd through the plain forward, at rates 0 and
     0.1 in f32 and bf16, windows of 7 and 5 (53 and 29 tokens): K3, and on
     its bf16 tensor-core path K3-w, the weight gradients from the operands
@@ -88,12 +91,15 @@ import numpy as np
 SEED = 0
 FLAGSHIP_BATCH = 25
 WINDOWS_PER_SAMPLE = 30           # 84x70 max-pooled to 42x35: 6x5 windows
-# (name, heads, dim_head, dim, conditioned, windows, head-0 score offset)
+# (name, heads, dim_head, dim, conditioned, windows, head-0 score offset,
+# window size); window 5 has 29 tokens, which leave rows 29..63 of the
+# 64-row tile as padding (two of its four 16-row strips wholly so)
 ATTENTION_CASES = [
     ("flagship", 32, 32, 128, True, FLAGSHIP_BATCH * 12 * WINDOWS_PER_SAMPLE,
-     0.0),
-    ("heads3_uncond", 3, 16, 48, False, 600, 0.0),
-    ("diverging", 32, 32, 128, True, 600, -200.0),
+     0.0, 7),
+    ("heads3_uncond", 3, 16, 48, False, 600, 0.0, 7),
+    ("diverging", 32, 32, 128, True, 600, -200.0, 7),
+    ("window5", 4, 32, 128, True, 600, 0.0, 5),
 ]
 # max|kernel - plain| / max|plain|: f32 sums run in another order; bf16
 # rounds at other points (the kernel keeps LayerNorm and softmax in f32)
@@ -158,7 +164,8 @@ def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed,
 
 
 def kernel_vs_plain(dev):
-    """Phase 2.  Returns the flagship bf16 case's error and both times."""
+    """Phase 2.  Returns the flagship bf16 case's error and both times.
+    Raises on a second launch that is not bit-identical."""
     import torch
 
     from vit_grid_model_tpu_torch.ops import attention as plain
@@ -166,13 +173,14 @@ def kernel_vs_plain(dev):
     from vit_grid_model_tpu_torch.ops.window import relative_position_indices
     from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
-    bias_idx = relative_position_indices(7, 4, device=dev)
     report = {}
-    for name, heads, dh, dim, conditioned, bw, offset in ATTENTION_CASES:
+    for (name, heads, dh, dim, conditioned, bw, offset,
+         window) in ATTENTION_CASES:
+        bias_idx = relative_position_indices(window, 4, device=dev)
         for dtype_name, tol in TOLERANCE.items():
             dtype = getattr(torch, dtype_name)
             m, x, cond = attention_case(heads, dh, dim, conditioned, bw,
-                                        offset, SEED)
+                                        offset, SEED, window)
             m = m.to(dev, dtype)
             xt = torch.from_numpy(x).to(dev, dtype)
             ct = (None if cond is None
@@ -189,7 +197,11 @@ def kernel_vs_plain(dev):
 
             with torch.inference_mode():
                 ours = run_kernel()
+                again = run_kernel()
                 torch.cuda.synchronize()
+                if not torch.equal(ours, again):
+                    raise AssertionError(f"{name} {dtype_name}: two "
+                                         "launches differ")
                 ref = run_plain()
                 torch.cuda.synchronize()
                 ours, ref = ours.float(), ref.float()
@@ -199,18 +211,23 @@ def kernel_vs_plain(dev):
                 err = (ours - ref).abs().max().item()
                 scale = ref.abs().max().item()
                 line = (f"{name:14s} {dtype_name:8s} Bw={bw:5d} "
+                        f"n={x.shape[1]} "
                         f"max|d|={err:.3e} max|plain|={scale:.3e} "
-                        f"rel={err / scale:.3e} (tol {tol:g})")
+                        f"rel={err / scale:.3e} (tol {tol:g}); bit-identical "
+                        "rerun")
                 if name == "flagship":
                     k_ms = cuda_ms(run_kernel)
                     p_ms = cuda_ms(run_plain)
-                    line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
+                    bound = attention_bound_ms(bw, x.shape[1], dim, heads,
+                                               dh, 2)
+                    line += (f"\n  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
+                             f"  bound {bound[0]:.3f} ms ({bound[1]})")
                     report[dtype_name] = (err, k_ms, p_ms)
                 print(line, flush=True)
                 if not err <= tol * scale:
                     raise AssertionError(f"{name} {dtype_name}: kernel "
                                          f"differs from plain by {err}")
-            del m, xt, ct, ours, ref
+            del m, xt, ct, ours, again, ref
             torch.cuda.empty_cache()
     return report
 
@@ -412,42 +429,70 @@ def dropout_mask_check(dev):
 
 def dropout_forward(dev):
     """Phase 2c: the forward kernel at rate 0.1 against the plain version
-    given the same keep mask."""
+    given the same keep mask, in every training case (windows of 7 and 5);
+    a second launch bit-identical.  Returns {dtype: (max abs err, kernel
+    ms, plain ms)} of the flagship case at Bw 1,440, the plain time with
+    its keep mask drawn."""
     import torch
 
     from vit_grid_model_tpu_torch.ops import attention as plain
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
     from vit_grid_model_tpu_torch.ops.dropout import keep_mask
     from vit_grid_model_tpu_torch.ops.window import relative_position_indices
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
-    bias_idx = relative_position_indices(7, 4, device=dev)
-    for name, heads, dh, dim, conditioned, bw, offset, _ in TRAIN_CASES[:2]:
+    report = {}
+    for name, heads, dh, dim, conditioned, bw, offset, window in TRAIN_CASES:
+        bias_idx = relative_position_indices(window, 4, device=dev)
+        n = window * window + 4
         for dtype_name, tol in TOLERANCE.items():
             dtype = getattr(torch, dtype_name)
             m, xt, ct, _, _ = kernel_case(heads, dh, dim, conditioned, bw,
-                                          offset, dev, dtype)
-            with torch.inference_mode():
-                ours = cuda_attn.window_attention(
+                                          offset, dev, dtype, window)
+
+            def run_kernel():
+                return cuda_attn.window_attention(
                     m, xt, ct, bias_idx, windows_per_sample=WINDOWS_PER_SAMPLE,
-                    seed=DROPOUT_SEED, dropout_rate=DROPOUT).float()
-                mask = keep_mask(DROPOUT_SEED, bw, heads, 53, DROPOUT,
+                    seed=DROPOUT_SEED, dropout_rate=DROPOUT)
+
+            def run_plain():
+                mask = keep_mask(DROPOUT_SEED, bw, heads, n, DROPOUT,
                                  device=dev)
-                ref = plain.attention(
+                return plain.attention(
                     m, xt, ct, bias_idx, windows_per_sample=WINDOWS_PER_SAMPLE,
-                    dropout_mask=mask).float()
+                    dropout_mask=mask)
+
+            with torch.inference_mode():
+                ours = run_kernel()
+                again = run_kernel()
+                ref = run_plain()
                 torch.cuda.synchronize()
-            if not bool(torch.isfinite(ours).all()):
-                raise AssertionError(f"{name} {dtype_name}: not finite")
-            err = (ours - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            print(f"{name:14s} {dtype_name:8s} Bw={bw:5d} rate {DROPOUT}: "
-                  f"max|d|={err:.3e} rel={err / scale:.3e} (tol {tol:g})",
-                  flush=True)
+                if not torch.equal(ours, again):
+                    raise AssertionError(f"{name} {dtype_name}: two "
+                                         "launches with dropout differ")
+                ours, ref = ours.float(), ref.float()
+                if not bool(torch.isfinite(ours).all()):
+                    raise AssertionError(f"{name} {dtype_name}: not finite")
+                err = (ours - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                line = (f"{name:14s} {dtype_name:8s} Bw={bw:5d} n={n} rate "
+                        f"{DROPOUT}: max|d|={err:.3e} rel={err / scale:.3e} "
+                        f"(tol {tol:g}); bit-identical rerun")
+                if name == "flagship":
+                    k_ms = cuda_ms(run_kernel)
+                    p_ms = cuda_ms(run_plain)
+                    bound = attention_bound_ms(bw, n, dim, heads, dh, 2)
+                    line += (f"\n  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
+                             f" (with its mask)  bound {bound[0]:.3f} ms "
+                             f"({bound[1]})")
+                    report[dtype_name] = (err, k_ms, p_ms)
+            print(line, flush=True)
             if not err <= tol * scale:
                 raise AssertionError(f"{name} {dtype_name}: the kernel with "
                                      f"dropout differs from plain by {err}")
-            del m, xt, ct, ours, ref, mask
+            del m, xt, ct, ours, again, ref
             torch.cuda.empty_cache()
+    return report
 
 
 def wgrad_vs_plain(xt, k, dy, rate, card):
@@ -1313,7 +1358,7 @@ def main() -> int:
     mask_report = dropout_mask_check(dev)
 
     phase("2c", "forward kernel with dropout vs plain")
-    dropout_forward(dev)
+    dropout_report = dropout_forward(dev)
 
     phase("2d", "backward kernels vs plain on the card")
     bwd_report = backward_vs_plain(dev, card)
@@ -1429,6 +1474,11 @@ def main() -> int:
                               torch.bfloat16)
     print(f"evaluation path: window_attention_fwd launched {eval_launches} "
           "times", flush=True)
+    train_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2)
+    print(f"window_attention_fwd, bf16: Bw 9,000 {k_ms:.3f} ms (bound "
+          f"{fwd_bound[0]:.3f}); Bw 1,440 rate {DROPOUT} "
+          f"{dropout_report['bfloat16'][1]:.3f} ms (bound "
+          f"{train_bound[0]:.3f}); card: {card}", flush=True)
     kernels = [
         ("window_attention_fwd", "window_attention_fwd.cu", f"{tpu}:139",
          train_counts["window_attention_fwd"], err, k_ms, p_ms, fwd_bound,

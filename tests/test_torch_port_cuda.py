@@ -48,21 +48,30 @@ CASES = [
 ]
 
 
+# CASES at window 7 (53 tokens), and the flagship widths at window 5, whose
+# 29 tokens leave another padding (rows 29..63 of the 64-row tile; two of
+# its four 16-row strips wholly padding)
+WINDOW_CASES = [case + (7,) for case in CASES] + [(4, 32, 128, True, 0.0, 5)]
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset,window",
+                         WINDOW_CASES)
 def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
-                              offset):
+                              offset, window):
+    """The forward kernel against the plain version; a second launch is
+    bit-identical."""
     _need_cuda()
     m, x, cond = attention_case(heads, dim_head, dim, conditioned, 60,
-                                offset, seed=0)
+                                offset, seed=0, window=window)
     dev = torch.device("cuda")
     m = m.to(dev, dtype)
-    bias_idx = relative_position_indices(7, 4, device=dev)
+    bias_idx = relative_position_indices(window, 4, device=dev)
     xt = torch.from_numpy(x).to(dev, dtype)
     ct = None if cond is None else torch.from_numpy(cond).to(dev, dtype)
     before = cuda_attn.launches
@@ -70,8 +79,11 @@ def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
         ref = tattn.attention(m, xt, ct, bias_idx, windows_per_sample=30)
         ours = cuda_attn.window_attention(m, xt, ct, bias_idx,
                                           windows_per_sample=30)
+        again = cuda_attn.window_attention(m, xt, ct, bias_idx,
+                                           windows_per_sample=30)
     torch.cuda.synchronize()
-    assert cuda_attn.launches == before + 1
+    assert cuda_attn.launches == before + 2
+    assert torch.equal(ours, again)
     assert ours.dtype == dtype and ours.shape == xt.shape
     ref, ours = ref.float(), ours.float()
     assert torch.isfinite(ours).all()
@@ -105,38 +117,40 @@ def test_keep_mask_bit_equal(heads, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset", CASES)
+@pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset,window",
+                         WINDOW_CASES)
 def test_kernel_with_dropout_matches_plain(dtype, heads, dim_head, dim,
-                                           conditioned, offset):
+                                           conditioned, offset, window):
+    """The same with dropout, against the plain version given the keep
+    mask; a second launch is bit-identical."""
     _need_cuda()
     dev = torch.device("cuda")
     m, xt, ct, _, _ = chip_smoke.kernel_case(heads, dim_head, dim,
                                              conditioned, 60, offset, dev,
-                                             dtype)
-    bias_idx = relative_position_indices(7, 4, device=dev)
+                                             dtype, window)
+    n = xt.shape[1]
+    bias_idx = relative_position_indices(window, 4, device=dev)
     with torch.inference_mode():
         ref = tattn.attention(m, xt, ct, bias_idx, windows_per_sample=30,
-                              dropout_mask=keep_mask(77, 60, heads, 53, 0.25,
+                              dropout_mask=keep_mask(77, 60, heads, n, 0.25,
                                                      device=dev))
         ours = cuda_attn.window_attention(m, xt, ct, bias_idx,
                                           windows_per_sample=30, seed=77,
                                           dropout_rate=0.25)
+        again = cuda_attn.window_attention(m, xt, ct, bias_idx,
+                                           windows_per_sample=30, seed=77,
+                                           dropout_rate=0.25)
+    assert torch.equal(ours, again)
     ref, ours = ref.float(), ours.float()
     assert torch.isfinite(ours).all()
     err = (ours - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item(), err
 
 
-# the backward's cases: CASES at window 7 (53 tokens), and the flagship
-# widths at window 5, whose 29 tokens leave another padding (rows 29..63 of
-# the 64-row tile; two of its four 16-row strips wholly padding)
-BWD_CASES = [case + (7,) for case in CASES] + [(4, 32, 128, True, 0.0, 5)]
-
-
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,dim_head,dim,conditioned,offset,window",
-                         BWD_CASES)
+                         WINDOW_CASES)
 def test_backward_matches_plain(rate, dtype, heads, dim_head, dim,
                                 conditioned, offset, window):
     """Every output of the backward kernel against autograd through the

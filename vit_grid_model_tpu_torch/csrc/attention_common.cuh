@@ -2,7 +2,8 @@
 // between f32 and the activation type T (f32 or bf16), warp reductions, the
 // wmma tile product the bf16 paths run the projections on, the mma.sync
 // m16n8k16 bf16 fragments (and f32 operands split into bf16 high and low
-// parts for them), the cp.async copies, the CUDA-core f32 product
+// parts for them, with their loaders from shared memory, and ldmatrix's
+// transposed B fragments), the cp.async copies, the CUDA-core f32 product
 // and the per-head steps (norm, scores, softmax, P.v) of the per-head
 // kernels, a few query rows' attention run by one warp (attend_rows), and
 // the steps of the head-group kernels (R4's and R3's): a group's q|k|v
@@ -147,6 +148,99 @@ __device__ __forceinline__ void mma_split_16816(float (&c)[4],
   mma_bf16_16816(c, alo, bhi[0], bhi[1]);
   mma_bf16_16816(c, ahi, blo[0], blo[1]);
   mma_bf16_16816(c, ahi, bhi[0], bhi[1]);
+}
+
+// Fragments of f32 operands in shared memory, split for mma_split_16816
+// (lane l = 4g + t; layouts as in mma_bf16_16816), used by the strips of
+// the window-attention forward and backward.
+
+// A fragment of the 16 x 16 block at a (rows ld apart), column k scaled by
+// ks[k] when ks is not null.
+__device__ __forceinline__ void frag_a(const float* a, int ld,
+                                       const float* ks, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = 2 * t + 8 * (i >> 1);
+    float2 v = *reinterpret_cast<const float2*>(a + (g + 8 * (i & 1)) * ld +
+                                                c);
+    if (ks != nullptr) {
+      v.x *= ks[c];
+      v.y *= ks[c + 1];
+    }
+    split_bf16(v.x, v.y, hi[i], lo[i]);
+  }
+}
+
+// A fragment of the transpose of the 16 x 16 block at x: A(m, k) =
+// x[k * ld + m].
+__device__ __forceinline__ void frag_a_t(const float* x, int ld,
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = g + 8 * (i & 1);
+    const int k = 2 * t + 8 * (i >> 1);
+    split_bf16(x[k * ld + m], x[(k + 1) * ld + m], hi[i], lo[i]);
+  }
+}
+
+// B fragment (16 x 8) of the block at x: B(k, c) = x[k * ld + c].
+__device__ __forceinline__ void frag_b(const float* x, int ld,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k = 2 * t + 8 * i;
+    split_bf16(x[k * ld + g], x[(k + 1) * ld + g], hi[i], lo[i]);
+  }
+}
+
+// B fragment of the transpose of the 8 x 16 block at y: B(k, c) =
+// y[c * ld + k].
+__device__ __forceinline__ void frag_b_t(const float* y, int ld,
+                                         uint32_t (&hi)[2],
+                                         uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 v =
+        *reinterpret_cast<const float2*>(y + g * ld + 2 * t + 8 * i);
+    split_bf16(v.x, v.y, hi[i], lo[i]);
+  }
+}
+
+// The A fragment of one 16-column step from the accumulators of its two
+// 8-column tiles (c0: columns 0-7, c1: 8-15).
+__device__ __forceinline__ void frag_a_acc(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Four 8 x 8 bf16 blocks of shared memory, transposed, into r: lane l
+// gives the address of row l % 8 of block l / 8 (16 bytes, 16-byte
+// aligned).  With the blocks (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7,
+// n 8-15), (k 8-15, n 8-15) of a row-major K x N operand, r holds the B
+// fragments (b0, b1) of its two 8-column tiles.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {

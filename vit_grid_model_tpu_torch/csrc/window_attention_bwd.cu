@@ -204,83 +204,6 @@ __device__ void round_buffer(float* buf, int ld, int rows, int cols) {
     __syncthreads();
   }
 }
-// ---- kTC: fragments of f32 operands in shared memory, split for
-// mma_split_16816 (lane l = 4g + t; layouts as in mma_bf16_16816) ----
-
-// A fragment of the 16 x 16 block at a (rows ld apart), column k scaled by
-// ks[k] when ks is not null.
-__device__ __forceinline__ void frag_a(const float* a, int ld,
-                                       const float* ks, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = 2 * t + 8 * (i >> 1);
-    float2 v = *reinterpret_cast<const float2*>(a + (g + 8 * (i & 1)) * ld +
-                                                c);
-    if (ks != nullptr) {
-      v.x *= ks[c];
-      v.y *= ks[c + 1];
-    }
-    split_bf16(v.x, v.y, hi[i], lo[i]);
-  }
-}
-
-// A fragment of the transpose of the 16 x 16 block at x: A(m, k) =
-// x[k * ld + m].
-__device__ __forceinline__ void frag_a_t(const float* x, int ld,
-                                         uint32_t (&hi)[4],
-                                         uint32_t (&lo)[4]) {
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = g + 8 * (i & 1);
-    const int k = 2 * t + 8 * (i >> 1);
-    split_bf16(x[k * ld + m], x[(k + 1) * ld + m], hi[i], lo[i]);
-  }
-}
-
-// B fragment (16 x 8) of the block at x: B(k, c) = x[k * ld + c].
-__device__ __forceinline__ void frag_b(const float* x, int ld,
-                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int k = 2 * t + 8 * i;
-    split_bf16(x[k * ld + g], x[(k + 1) * ld + g], hi[i], lo[i]);
-  }
-}
-
-// B fragment of the transpose of the 8 x 16 block at y: B(k, c) =
-// y[c * ld + k].
-__device__ __forceinline__ void frag_b_t(const float* y, int ld,
-                                         uint32_t (&hi)[2],
-                                         uint32_t (&lo)[2]) {
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 v =
-        *reinterpret_cast<const float2*>(y + g * ld + 2 * t + 8 * i);
-    split_bf16(v.x, v.y, hi[i], lo[i]);
-  }
-}
-
-// The A fragment of one 16-column step from the accumulators of its two
-// 8-column tiles (c0: columns 0-7, c1: 8-15).
-__device__ __forceinline__ void frag_a_acc(const float (&c0)[4],
-                                           const float (&c1)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
 // A strip of dQn (or dKn): rows r0..r0+15 of acc . diag(nscale), held in
 // the accumulators of dh / 8 column tiles.  Writes the strip's column sums
 // of dQn * u to part[c] (c < dh; for dqg_h) and, for rows r < n, the

@@ -66,16 +66,6 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                "l"(src), "r"(full ? 16 : 0));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // Rows k0..k0+kBK-1 of the chunk (those < k_end; the rest zero) of A's
 // columns m0.. and B's columns n0.. into one stage.
 __device__ __forceinline__ void load_stage(bf16* st, const Product& p,

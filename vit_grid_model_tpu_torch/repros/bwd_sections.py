@@ -265,16 +265,18 @@ __device__ void wmma_sink(int M, int N, int K, const __nv_bfloat16* A,
             "noslot_stamp": _wrap(_replace(stamped, noslot))}
 
 
-def build(sources: Dict[str, str]) -> Dict[str, Path]:
-    """nvcc each source into a shared library, all at once."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+def build(sources: Dict[str, str],
+          directory: Path = BUILD) -> Dict[str, Path]:
+    """nvcc each source into a shared library in ``directory``, all at
+    once."""
+    directory.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
              "-Xcompiler", "-fPIC", "-shared", "-I", str(library.CSRC)]
     libs, procs = {}, []
     for name, text in sources.items():
-        src = BUILD / f"{name}.cu"
+        src = directory / f"{name}.cu"
         src.write_text(text)
-        libs[name] = BUILD / f"lib{name}.so"
+        libs[name] = directory / f"lib{name}.so"
         procs.append(subprocess.Popen(
             [library.nvcc(), *flags, "-o", str(libs[name]), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
