@@ -12,13 +12,17 @@ drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
 repro (per-head attention at 8 and 16 windows a CTA), the R7 repro (one
 MaxViT layer's block and grid attention in one launch), the repros of R1's
 variants R4, R10, R9, R11 and R3, the repros of the out-projection
-family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
+family R12-R13, R2 and R8, and the head-pack repros R5 and R6, and last
+the inference entry points (serving, re-analysis generation and station
+evaluation) at the shipped configuration.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
 2. forward kernel vs plain: flagship, 3-head, diverging-score and window-5
    (29 tokens) cases in f32 and bf16, bit-identical on a second launch;
-   kernel and plain times at the flagship shape beside the bound;
+   kernel and plain times at the flagship shape beside the bound; and K1
+   in bf16 off the strip path (dim 256, 8 heads x 64), held to the f32
+   plain version within 2 x the plain bf16 version's own error;
 2b. dropout keep mask: the CUDA hash bit-equal to its plain version;
 2c. forward kernel with dropout vs plain with the same mask, in the
    training cases (windows of 7 and 5), bit-identical on a second launch;
@@ -29,8 +33,9 @@ family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
     K3 writes, also alone against its plain version; bit-identical on a
     second launch; K3's, K3-w's and the plain times;
 3. whole model: one sample forward in f32 on the GPU against the CPU;
-4. main path: the evaluation CLI; every window attention must have gone
-   through the forward kernel;
+4. main path: the evaluation CLI with --collect_valid_times; every window
+   attention must have gone through the forward kernel, and every
+   collected time has hour 06;
 5. whole-model gradients: one training loss and backward in f32 on the GPU
    (forward and backward kernels) against the CPU (plain version) in f64;
 6. training main path: the training CLI; every window attention and its
@@ -70,7 +75,15 @@ family R12-R13, R2 and R8, and the head-pack repros R5 and R6.  Phases:
    with an f32 output, a ragged Bw, every odd head's scores 200 below in
    both types), bit-identical on a second launch; then the two repros'
    entry points, each of which must launch the kernel at every K it runs,
-   with kernel, plain, out-projection-kernel and unfused times.
+   with kernel, plain, out-projection-kernel and unfused times;
+13. the inference entry points, on phase 4's tree, at the shipped 12-hour
+   configuration in bf16: (a) ``Forecaster(device="cuda")`` at B = 1, 2
+   warm-ups and 20 requests (p50/p90 latency; one request against a
+   direct forward of the same model), then K1 alone at its Bw 360; (b)
+   the generation CLI at its batch of 8 over 44 samples (a ragged last
+   batch): one finite field a sample and lead, fields/s; (c) the station
+   evaluation CLI with --fast at batch 25: its log block, n_obs > 0,
+   samples/s.  Each must have run every window attention through K1.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -85,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import datetime
 
 import numpy as np
 
@@ -104,6 +118,25 @@ ATTENTION_CASES = [
 # max|kernel - plain| / max|plain|: f32 sums run in another order; bf16
 # rounds at other points (the kernel keeps LayerNorm and softmax in f32)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# bf16 off the strip path (dim > 128, dh > 32): (heads, dim_head, dim,
+# conditioned, windows, head-0 score offset, window size).  It is held to
+# the f32 plain version on the same bf16-rounded inputs, within
+# WIDE_BOUND x the plain bf16 version's own error against that f32 version,
+# a bound that grows with dh as the plain rounding does
+WIDE_CASE = (8, 64, 256, True, 300, 0.0, 7)
+WIDE_BOUND = 2.0
+
+# phase 4's window, 100 hourly samples (four batches of 25); its tree
+# also feeds phase 13
+EVAL_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 14, 3))
+# phase 13: serving at B = 1 (Bw 360 a K1 call), generation at the CLI's
+# batch of 8 over 44 samples (five batches and a ragged one of 4),
+# station evaluation at batch 25 over 75 samples (three batches)
+SERVING_WARMUP, SERVING_REQUESTS = 2, 20
+SERVING_REL_TOL = 1e-6
+GENERATION_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 11, 19))
+GENERATION_BATCH = 8
+STATION_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 13, 2))
 
 TRAIN_BATCH = 4
 TRAIN_WINDOWS = TRAIN_BATCH * 12 * WINDOWS_PER_SAMPLE      # 1,440
@@ -232,6 +265,56 @@ def kernel_vs_plain(dev):
     return report
 
 
+def wide_bf16_vs_f32(dev):
+    """K1 in bf16 on ``WIDE_CASE``, off the strip path.  Returns
+    (max|kernel - f32 plain|, max|plain bf16 - f32 plain|, max|f32 plain|)
+    on the same bf16-rounded layer and inputs; raises when the kernel
+    misses WIDE_BOUND x the plain bf16 error, is not finite, or a second
+    launch is not bit-identical."""
+    import copy
+
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.window import relative_position_indices
+
+    heads, dh, dim, conditioned, bw, offset, window = WIDE_CASE
+    m, x, cond = attention_case(heads, dh, dim, conditioned, bw, offset,
+                                SEED, window)
+    m = m.to(dev, torch.bfloat16)
+    xt = torch.from_numpy(x).to(dev, torch.bfloat16)
+    ct = torch.from_numpy(cond).to(dev, torch.bfloat16)
+    m32 = copy.deepcopy(m).float()
+    bias_idx = relative_position_indices(window, 4, device=dev)
+    with torch.inference_mode():
+        ours = cuda_attn.window_attention(
+            m, xt, ct, bias_idx, windows_per_sample=WINDOWS_PER_SAMPLE)
+        again = cuda_attn.window_attention(
+            m, xt, ct, bias_idx, windows_per_sample=WINDOWS_PER_SAMPLE)
+        ref_bf16 = plain.attention(m, xt, ct, bias_idx,
+                                   windows_per_sample=WINDOWS_PER_SAMPLE)
+        ref = plain.attention(m32, xt.float(), ct.float(), bias_idx,
+                              windows_per_sample=WINDOWS_PER_SAMPLE)
+        torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError("wide bf16: two launches differ")
+    ours = ours.float()
+    if not bool(torch.isfinite(ours).all()):
+        raise AssertionError("wide bf16: kernel output is not finite")
+    err = (ours - ref).abs().max().item()
+    plain_err = (ref_bf16.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"wide bf16 heads={heads} dh={dh} dim={dim} Bw={bw}: "
+          f"max|kernel - f32 plain|={err:.3e}, max|plain bf16 - f32 plain|="
+          f"{plain_err:.3e}, max|f32 plain|={scale:.3e} (bound "
+          f"{WIDE_BOUND:g} x the plain bf16 error)", flush=True)
+    if not err <= WIDE_BOUND * plain_err:
+        raise AssertionError(f"wide bf16: kernel error {err} above "
+                             f"{WIDE_BOUND} x {plain_err}")
+    return err, plain_err, scale
+
+
 def whole_model(dev):
     """Phase 3: the shipped 12-hour model, one sample, f32, GPU vs CPU."""
     import torch
@@ -275,10 +358,10 @@ def whole_model(dev):
         raise AssertionError(f"GPU and CPU forwards differ: {rel}")
 
 
-def main_path(card: str):
-    """Phase 4: the --fast evaluation CLI over a synthetic tree."""
-    from datetime import datetime
-
+def main_path(card: str, root: str):
+    """Phase 4: the --fast evaluation CLI over a synthetic tree, written
+    under ``root`` and kept for phase 13.  Returns (K1 launches, the tree's
+    three paths)."""
     import torch
 
     from vit_grid_model_tpu_torch.data import readers, synthetic
@@ -287,33 +370,32 @@ def main_path(card: str):
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
 
     # 100 hourly samples: four full batches of 25
-    start, end = datetime(2023, 1, 10, 0), datetime(2023, 1, 14, 3)
-    with tempfile.TemporaryDirectory(prefix="vgm_smoke_") as root:
-        t0 = time.perf_counter()
-        paths = synthetic.generate_tree(os.path.join(root, "tree"), start,
-                                        end, prev_len=13, output_dim=12)
-        readers.clear_caches()
-        print(f"synthetic tree: {time.perf_counter() - t0:.1f} s", flush=True)
-        log_dir = os.path.join(root, "logs")
-        argv = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
-                "--input_dim", "13", "--output_dim", "12", "--prev_len", "13",
-                "--hidden_dim", "128", "--gpus", "0",
-                "--data_path", paths["data_path"],
-                "--sim_data_path", paths["sim_data_path"],
-                "--analysis_data_path", paths["analysis_data_path"],
-                "--model_name", "smoke", "--seed", str(SEED),
-                "--test_start", start.strftime("%Y-%m-%dT%H"),
-                "--test_end", end.strftime("%Y-%m-%dT%H"),
-                "--log_dir", log_dir]
-        timing = BatchTiming()
-        cuda_attn.reset_launches()
-        metrics = cli.main(argv, timing=timing)
-        torch.cuda.synchronize()
-        launches = cuda_attn.launches
-        if cuda_attn.bwd_launches or cuda_attn.hash_launches:
-            raise AssertionError("the evaluation ran a backward or dropout")
-        with open(os.path.join(log_dir, "test_smoke.log")) as f:
-            log = f.read()
+    start, end = EVAL_WINDOW
+    t0 = time.perf_counter()
+    paths = synthetic.generate_tree(os.path.join(root, "tree"), start, end,
+                                    prev_len=13, output_dim=12)
+    readers.clear_caches()
+    print(f"synthetic tree: {time.perf_counter() - t0:.1f} s", flush=True)
+    log_dir = os.path.join(root, "logs")
+    argv = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
+            "--input_dim", "13", "--output_dim", "12", "--prev_len", "13",
+            "--hidden_dim", "128", "--gpus", "0",
+            "--data_path", paths["data_path"],
+            "--sim_data_path", paths["sim_data_path"],
+            "--analysis_data_path", paths["analysis_data_path"],
+            "--model_name", "smoke", "--seed", str(SEED),
+            "--test_start", start.strftime("%Y-%m-%dT%H"),
+            "--test_end", end.strftime("%Y-%m-%dT%H"),
+            "--log_dir", log_dir, "--collect_valid_times"]
+    timing = BatchTiming()
+    cuda_attn.reset_launches()
+    metrics = cli.main(argv, timing=timing)
+    torch.cuda.synchronize()
+    launches = cuda_attn.launches
+    if cuda_attn.bwd_launches or cuda_attn.hash_launches:
+        raise AssertionError("the evaluation ran a backward or dropout")
+    with open(os.path.join(log_dir, "test_smoke.log")) as f:
+        log = f.read()
     batches = len(timing.samples)
     layers = 1                                   # MaxViT depth (1,)
     print(f"batches {timing.samples}; kernel launches {launches} "
@@ -330,6 +412,12 @@ def main_path(card: str):
                 raise AssertionError(f"{name} {key} = {summary[name][key]}")
     if "model RMSE:" not in log or "MultiAir CSI:" not in log:
         raise AssertionError("the evaluation log is incomplete")
+    # --collect_valid_times: one entry a batch, each time's hour 06
+    valid = np.concatenate(metrics.valid_times)
+    print(f"--collect_valid_times: {valid.tolist()}", flush=True)
+    if len(metrics.valid_times) != batches or valid.size != 4 or not (
+            valid % 100 == 6).all():
+        raise AssertionError(f"collected valid times {valid.tolist()}")
     steady = sum(timing.samples[1:]) / sum(timing.seconds[1:])
     print(f"steady state (batches 2..{batches}): {steady:.2f} samples/s, "
           f"{steady * 12:.2f} fields/s; first batch "
@@ -337,6 +425,205 @@ def main_path(card: str):
     print("host seconds per batch, batches 2..: " + ", ".join(
         f"{k} {np.mean(v[1:]):.3f}" for k, v in timing.phases.items()),
         flush=True)
+    return launches, paths
+
+
+def serving_path(dev, card: str):
+    """Phase 13a: ``Forecaster`` on the card at B = 1 (fast: bf16, the
+    fused lead stem, K1 at Bw 360), SERVING_WARMUP warm-ups and
+    SERVING_REQUESTS requests.  Returns (K1 launches, p50 ms, p90 ms)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
+    from vit_grid_model_tpu_torch.evaluation.serving import Forecaster
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
+    cfg = shipped_12hr_model_config(pm25_mean=mean, pm25_std=std)
+    rng = np.random.default_rng(SEED + 13)
+    x = (rng.random((1, 25, 24, 82, 67)) * 50).astype(np.float32)
+    ts = np.stack([np.full(25, 2023.0), np.full(25, 1.0), np.full(25, 15.0),
+                   np.arange(25) % 24], axis=-1)[None].astype(np.float32)
+    cuda_attn.reset_launches()
+    t0 = time.perf_counter()
+    f = Forecaster(seeded_model(cfg, SEED), device="cuda",
+                   warmup=SERVING_WARMUP)
+    built = time.perf_counter() - t0
+    latencies = []
+    for _ in range(SERVING_REQUESTS):
+        t0 = time.perf_counter()
+        out = f.predict(x, ts)
+        latencies.append(1e3 * (time.perf_counter() - t0))
+    launches = cuda_attn.launches
+    expect = 2 * sum(cfg.depth_tuple) * (SERVING_WARMUP + SERVING_REQUESTS)
+    print(f"Forecaster(device='cuda'): {f.cfg.compute_dtype}, fused stem "
+          f"{f.cfg.fuse_lead_stem}; construction with {SERVING_WARMUP} "
+          f"warm-ups {built:.2f} s; K1 launches {launches} (expected "
+          f"{expect})", flush=True)
+    if launches != expect:
+        raise AssertionError("serving did not run every window attention "
+                             "through the kernel")
+    if out.shape != (1, 12, 82, 67) or not np.isfinite(out).all():
+        raise AssertionError(f"serving output {out.shape} is not finite")
+    # the same bf16 model on the same card, called directly on the same
+    # input (the device's cast rounds as the host's does)
+    with torch.inference_mode():
+        direct = f.model(torch.from_numpy(x).to(dev, torch.bfloat16),
+                         torch.from_numpy(ts).to(dev)).float().cpu().numpy()
+    err = float(np.abs(out - direct).max())
+    scale = float(np.abs(direct).max())
+    print(f"request vs direct model(x, ts): max|d| = {err:.3e}, max|out| = "
+          f"{scale:.3f} (tol {SERVING_REL_TOL:g} x max|out|)", flush=True)
+    if not err <= SERVING_REL_TOL * scale:
+        raise AssertionError(f"a request differs from the direct forward "
+                             f"by {err}")
+    p50, p90 = np.percentile(latencies, [50, 90])
+    print(f"serving latency, B=1, {SERVING_REQUESTS} requests: p50 "
+          f"{p50:.3f} ms, p90 {p90:.3f} ms (min {min(latencies):.3f}, max "
+          f"{max(latencies):.3f}); card: {card}", flush=True)
+    return launches, p50, p90
+
+
+def k1_at_serving_shape(dev, card: str):
+    """Phase 13a: K1 alone at serving's Bw 360 (B = 1, 12 leads, 30
+    windows) in bf16, against its plain version.  Returns (error, kernel
+    ms, plain ms, bound)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.window import relative_position_indices
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
+
+    bw = 12 * WINDOWS_PER_SAMPLE
+    m, xt, ct, _, _ = kernel_case(32, 32, 128, True, bw, 0.0, dev,
+                                  torch.bfloat16)
+    bias_idx = relative_position_indices(7, 4, device=dev)
+
+    def run_kernel():
+        return cuda_attn.window_attention(
+            m, xt, ct, bias_idx, windows_per_sample=WINDOWS_PER_SAMPLE)
+
+    def run_plain():
+        return plain.attention(m, xt, ct, bias_idx,
+                               windows_per_sample=WINDOWS_PER_SAMPLE)
+
+    with torch.inference_mode():
+        ours, ref = run_kernel().float(), run_plain().float()
+        err = (ours - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        k_ms, p_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+    bound = attention_bound_ms(bw, 53, 128, 32, 32, 2)
+    print(f"K1 at Bw {bw} bf16: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}); max|d| / max|plain| = "
+          f"{err / scale:.3e} (tol {TOLERANCE['bfloat16']:g}); card: {card}",
+          flush=True)
+    if not err <= TOLERANCE["bfloat16"] * scale:
+        raise AssertionError(f"K1 at Bw {bw} differs from plain by {err}")
+    return err, k_ms, p_ms, bound
+
+
+def generation_path(paths, root: str, card: str):
+    """Phase 13b: the generation CLI on the card at its default batch of 8
+    (bf16, NHWC staging, Bw 2,880 a K1 call) over GENERATION_WINDOW, whose
+    44 samples end in a ragged batch.  Returns K1's launches."""
+    import torch
+
+    from vit_grid_model_tpu_torch.cli import generate_reanalysis as cli
+    from vit_grid_model_tpu_torch.data import readers
+    from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    start, end = GENERATION_WINDOW
+    samples = int((end - start).total_seconds() // 3600) + 1
+    batches = -(-samples // GENERATION_BATCH)
+    if samples % GENERATION_BATCH == 0:
+        raise AssertionError("the generation window must end ragged")
+    out_dir = os.path.join(root, "fields")
+    argv = ["--data_path", paths["data_path"],
+            "--sim_data_path", paths["sim_data_path"],
+            "--analysis_data_path", paths["analysis_data_path"],
+            "--gpus", "0", "--start", start.strftime("%Y-%m-%dT%H"),
+            "--end", end.strftime("%Y-%m-%dT%H"), "--out_dir", out_dir]
+    readers.clear_caches()
+    timing = BatchTiming()
+    cuda_attn.reset_launches()
+    written = cli.main(argv, timing=timing)
+    torch.cuda.synchronize()
+    launches = cuda_attn.launches
+    files = sorted(os.listdir(out_dir))
+    print(f"generation: {samples} samples, batches {timing.samples}; "
+          f"{len(files)} field files; K1 launches {launches} (expected 2 x "
+          f"{batches})", flush=True)
+    if written != len(files) or len(files) != samples * 12:
+        raise AssertionError(f"{len(files)} field files, {written} written; "
+                             f"expected {samples} x 12")
+    if launches != 2 * batches or len(timing.samples) != batches:
+        raise AssertionError("generation did not run every window "
+                             "attention through the kernel")
+    for name in files:
+        field = np.load(os.path.join(out_dir, name))
+        if field.shape != (82, 67) or not np.isfinite(field).all():
+            raise AssertionError(f"{name}: {field.shape}, not finite")
+    steady = 12 * sum(timing.samples[1:]) / sum(timing.seconds[1:])
+    print(f"generation steady state (batches 2..{batches}): {steady:.2f} "
+          f"fields/s; first batch {timing.seconds[0]:.2f} s; card: {card}",
+          flush=True)
+    return launches
+
+
+def station_path(paths, root: str, card: str):
+    """Phase 13c: the station evaluation CLI on the card with --fast at
+    batch 25 (Bw 9,000 a K1 call) over STATION_WINDOW, three batches.
+    Returns K1's launches."""
+    import torch
+
+    from vit_grid_model_tpu_torch.cli import station_eval as cli
+    from vit_grid_model_tpu_torch.data import readers
+    from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    start, end = STATION_WINDOW
+    log_dir = os.path.join(root, "station_logs")
+    argv = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
+            "--input_dim", "13", "--output_dim", "12", "--prev_len", "13",
+            "--hidden_dim", "128", "--gpus", "0",
+            "--data_path", paths["data_path"],
+            "--sim_data_path", paths["sim_data_path"],
+            "--analysis_data_path", paths["analysis_data_path"],
+            "--model_name", "smoke", "--seed", str(SEED),
+            "--test_start", start.strftime("%Y-%m-%dT%H"),
+            "--test_end", end.strftime("%Y-%m-%dT%H"),
+            "--log_dir", log_dir]
+    readers.clear_caches()
+    timing = BatchTiming()
+    cuda_attn.reset_launches()
+    metrics = cli.main(argv, timing=timing)
+    torch.cuda.synchronize()
+    launches = cuda_attn.launches
+    batches = len(timing.samples)
+    summary = metrics.summary()
+    with open(os.path.join(log_dir, "test_smoke_by_stn.log")) as f:
+        log = f.read()
+    print(f"station evaluation: batches {timing.samples}; K1 launches "
+          f"{launches} (expected 2 x {batches}); n_obs {summary['n_obs']}",
+          flush=True)
+    if timing.samples != [FLAGSHIP_BATCH] * 3:
+        raise AssertionError(f"expected 3 full batches: {timing.samples}")
+    if launches != 2 * batches:
+        raise AssertionError("station evaluation did not run every window "
+                             "attention through the kernel")
+    if not summary["n_obs"] > 0 or f"n_obs: {summary['n_obs']}" not in log:
+        raise AssertionError("the station log block is missing or empty")
+    for key in ("RMSE", "MAE", "R", "ACC"):
+        if not np.isfinite(summary[key]):
+            raise AssertionError(f"station {key} = {summary[key]}")
+    steady = sum(timing.samples[1:]) / sum(timing.seconds[1:])
+    print(f"station evaluation steady state (batches 2..{batches}): "
+          f"{steady:.2f} samples/s; first batch {timing.seconds[0]:.2f} s; "
+          f"card: {card}", flush=True)
     return launches
 
 
@@ -1321,6 +1608,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # phase 4's synthetic tree, kept for phase 13, and phase 13's outputs
+    with tempfile.TemporaryDirectory(prefix="vgm_smoke_") as root:
+        return run(root)
+
+
+def run(root: str) -> int:
+    import torch
+
     phase(0, "device")
     from vit_grid_model_tpu_torch.data import native
     from vit_grid_model_tpu_torch.ops.cuda import attention_variants, library
@@ -1353,6 +1648,7 @@ def main() -> int:
 
     phase(2, "forward kernel vs plain on the card")
     report = kernel_vs_plain(dev)
+    wide_bf16_vs_f32(dev)
 
     phase("2b", "dropout keep mask vs plain on the card")
     mask_report = dropout_mask_check(dev)
@@ -1367,7 +1663,7 @@ def main() -> int:
     whole_model(dev)
 
     phase(4, "main path: --fast evaluation")
-    eval_launches = main_path(card)
+    eval_launches, tree = main_path(card, root)
 
     phase(5, "whole-model gradients, GPU vs CPU")
     whole_model_grads(dev)
@@ -1456,6 +1752,22 @@ def main() -> int:
         repro_r6, [av], lambda: {f"K={k}": headpack_count(k)
                                  for k in HEADPACK_K})
 
+    phase("13a", "inference entry point: serving (Forecaster) on the card")
+    t13 = time.perf_counter()
+    serving_launches, _, _ = serving_path(dev, card)
+    k1_at_serving_shape(dev, card)
+    print(f"phase 13a: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    phase("13b", "inference entry point: re-analysis generation CLI")
+    t13 = time.perf_counter()
+    gen_launches = generation_path(tree, root, card)
+    print(f"phase 13b: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    phase("13c", "inference entry point: station evaluation CLI")
+    t13 = time.perf_counter()
+    station_launches = station_path(tree, root, card)
+    print(f"phase 13c: {time.perf_counter() - t13:.1f} s", flush=True)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
         "bfloat16"]
@@ -1472,8 +1784,10 @@ def main() -> int:
     mb_bound = repro.bound_ms(384, repro.H, repro.W, repro.DIM,
                               repro.DIM * repro.EXPANSION, repro.DIM,
                               torch.bfloat16)
-    print(f"evaluation path: window_attention_fwd launched {eval_launches} "
-          "times", flush=True)
+    print(f"window_attention_fwd launches by path: evaluation "
+          f"{eval_launches}, training {train_counts['window_attention_fwd']}"
+          f", serving {serving_launches}, generation {gen_launches}, "
+          f"station evaluation {station_launches}", flush=True)
     train_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2)
     print(f"window_attention_fwd, bf16: Bw 9,000 {k_ms:.3f} ms (bound "
           f"{fwd_bound[0]:.3f}); Bw 1,440 rate {DROPOUT} "

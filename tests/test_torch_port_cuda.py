@@ -91,6 +91,20 @@ def test_kernel_matches_plain(dtype, heads, dim_head, dim, conditioned,
     assert err <= TOL[dtype] * ref.abs().max().item(), err
 
 
+def test_kernel_wide_bf16_within_plain_rounding():
+    """K1 in bf16 off the strip path (``chip_smoke.WIDE_CASE``: dim 256,
+    8 heads x 64, window 7, FiLM on) against the f32 plain version on the
+    same bf16-rounded layer and inputs, within ``chip_smoke.WIDE_BOUND`` (2)
+    x the plain bf16 version's own error against that f32 version; a
+    second launch is bit-identical (both checked inside)."""
+    _need_cuda()
+    before = cuda_attn.launches
+    err, plain_err, scale = chip_smoke.wide_bf16_vs_f32(torch.device("cuda"))
+    assert cuda_attn.launches == before + 2
+    assert 0 < plain_err < scale
+    assert err <= chip_smoke.WIDE_BOUND * plain_err, (err, plain_err)
+
+
 def test_kernel_rejects_shapes_out_of_range():
     _need_cuda()
     m, _, cond = attention_case(2, 16, 32, True, 30, 0.0, seed=0)

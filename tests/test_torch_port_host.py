@@ -1,10 +1,13 @@
 """The port's own host code against the JAX package's originals: configs,
-the eval CLI's parser, the state-dict exporter, the synthetic tree, the
-datasets and ``BatchLoader``, the assembly, the native loader and the
-metric engine with its log writer.  Exact (bit- or byte-equal) unless
-stated; the native loader is held to the numpy path at rtol 1e-6, as
-``tests/test_native_loader.py`` holds the JAX package's."""
+the eval, generation and station CLIs' parsers, the state-dict exporter,
+the synthetic tree (also with its station keywords), the datasets (the
+station one too) and ``BatchLoader``, ``device_prefetch``, the assembly
+(with the host bf16 cast and the masked classes), ``pad_to_multiple``, the
+native loader and the metric engine with its log writer.  Exact (bit- or
+byte-equal) unless stated; the native loader is held to the numpy path at
+rtol 1e-6, as ``tests/test_native_loader.py`` holds the JAX package's."""
 
+import argparse
 import dataclasses
 import io
 import os
@@ -13,10 +16,14 @@ from datetime import datetime
 import numpy as np
 import pytest
 
+import torch
+
 import jax
 
 from tests import conftest as C  # noqa: F401
 from vit_grid_model_tpu.cli import evaluation_vit as jax_cli
+from vit_grid_model_tpu.cli import generate_reanalysis as jax_gen_cli
+from vit_grid_model_tpu.cli import station_eval as jax_stn_cli
 from vit_grid_model_tpu.core import config as jax_config
 from vit_grid_model_tpu.core.torch_export import (
     export_metnet3_state_dict as jax_export)
@@ -28,7 +35,10 @@ from vit_grid_model_tpu.data import synthetic as jax_synthetic
 from vit_grid_model_tpu.evaluation import logwriter as jax_logwriter
 from vit_grid_model_tpu.evaluation import metrics as jax_metrics
 from vit_grid_model_tpu.models.metnet3 import metnet3_init
+from vit_grid_model_tpu.parallel import mesh as jax_mesh
 from vit_grid_model_tpu_torch.cli import evaluation_vit as port_cli
+from vit_grid_model_tpu_torch.cli import generate_reanalysis as port_gen_cli
+from vit_grid_model_tpu_torch.cli import station_eval as port_stn_cli
 from vit_grid_model_tpu_torch.core import config as port_config
 from vit_grid_model_tpu_torch.core.export import (
     export_metnet3_state_dict as port_export)
@@ -42,6 +52,7 @@ from vit_grid_model_tpu_torch.data import timeutil as port_timeutil
 from vit_grid_model_tpu_torch.evaluation import driver as port_driver
 from vit_grid_model_tpu_torch.evaluation import logwriter as port_logwriter
 from vit_grid_model_tpu_torch.evaluation import metrics as port_metrics
+from vit_grid_model_tpu_torch.parallel import mesh as port_mesh
 
 START, END = datetime(2023, 2, 1, 0), datetime(2023, 2, 1, 9)
 INPUT_DIM, OUTPUT_DIM, PREV_LEN = 2, 2, 3
@@ -74,14 +85,44 @@ def test_config_validation_and_shipped_config_match():
         dataclasses.asdict(jax_config.shipped_12hr_model_config(22.5, 15.5))
 
 
-def test_eval_parser_options_and_defaults_match():
-    def options(parser):
-        return {a.dest: (tuple(a.option_strings), a.default, a.type,
-                         a.choices, a.nargs, a.const)
-                for a in parser._actions}
+def _options(parser):
+    return {a.dest: (tuple(a.option_strings), a.default, a.type,
+                     a.choices, a.nargs, a.const, a.required)
+            for a in parser._actions}
 
-    assert options(port_cli.build_parser()) == options(
+
+def test_eval_parser_options_and_defaults_match():
+    assert _options(port_cli.build_parser()) == _options(
         jax_cli.build_parser())
+
+
+def test_station_parser_options_and_defaults_match():
+    ours, ref = port_stn_cli.build_parser(), jax_stn_cli.build_parser()
+    assert _options(ours) == _options(ref)
+    assert ours.description == ref.description
+
+
+class _Parser(Exception):
+    pass
+
+
+def test_generate_parser_options_and_defaults_match(monkeypatch):
+    """The JAX CLI builds its parser inside ``main``: it is caught at
+    ``parse_args``.  The port adds ``--gpus`` (default "0") only."""
+    def catch(self, args=None, namespace=None):
+        raise _Parser(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    with pytest.raises(_Parser) as caught:
+        jax_gen_cli.main([])
+    monkeypatch.undo()
+    ref = caught.value.args[0]
+    ours = port_gen_cli.build_parser()
+    options = _options(ours)
+    assert options.pop("gpus") == (("--gpus",), "0", str, None, None, None,
+                                   False)
+    assert options == _options(ref)
+    assert ours.description == ref.description
 
 
 @pytest.mark.parametrize("depth", [(1,), (2,)])
@@ -132,6 +173,19 @@ def test_synthetic_tree_byte_identical(trees):
     assert sorted(ours) == sorted(ref) and len(ref) > 50
     for k in ref:
         assert ours[k] == ref[k], k
+
+
+def test_synthetic_tree_with_station_keywords_byte_identical(tmp_path):
+    kw = dict(prev_len=PREV_LEN, output_dim=OUTPUT_DIM, korea_stn_num=6,
+              china_stn_num=2, feat_dim=8)
+    for name, pkg in (("jax", jax_synthetic), ("port", port_synthetic)):
+        pkg.generate_tree(str(tmp_path / name), START, START, **kw)
+    ref, ours = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert sorted(ours) == sorted(ref) and len(ref) > 10
+    for k in ref:
+        assert ours[k] == ref[k], k
+    obs = [k for k in ref if k.endswith(".npy") and "ground_obs" in k]
+    assert obs and np.load(tmp_path / "port" / obs[0]).shape == (8, 9)
 
 
 def _dataset(module, cls, paths, use_native=None):
@@ -253,3 +307,111 @@ def test_metrics_and_log_text_equal():
         texts.append(f.getvalue())
     assert texts[0] == texts[1] and "MultiAir CSI:" in texts[0]
     assert engines[0].summary() == engines[1].summary()
+
+
+def test_by_stn_dataset_items_equal(trees):
+    """The station dataset, item by item and through the loader's batches;
+    its validity flag is not inverted, so ``stn_cls`` is -1 at exactly
+    the valid stations (both reference quirks kept)."""
+    _, paths = trees
+    cls = "AirSimulationReanalysisDatasetByStn"
+    assert port_datasets.Air_Simulation_Reanalysis_Dataset_by_stn is \
+        port_datasets.AirSimulationReanalysisDatasetByStn
+    ours = _dataset(port_datasets, cls, paths["port"])
+    ref = _dataset(jax_datasets, cls, paths["port"])
+    assert len(ours) == len(ref) > 0
+    for i in range(len(ref)):
+        a, b = ours[i], ref[i]
+        assert len(a) == len(b) == 11
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+        mask, stn_cls = a[9], a[10]
+        assert (stn_cls[~mask] == -1).all()
+    _assert_batches_equal(
+        [tuple(np.array(f) for f in batch)
+         for batch in port_pipeline.BatchLoader(ours, batch_size=3)],
+        [tuple(np.array(f) for f in batch)
+         for batch in jax_pipeline.BatchLoader(ref, batch_size=3)])
+
+
+@pytest.mark.parametrize("pipeline", [port_pipeline, jax_pipeline])
+def test_device_prefetch_order_and_laziness(pipeline):
+    """Nothing is staged before the first request; batch k+1 is staged
+    before batch k is yielded; the order is kept."""
+    puts = []
+
+    def put(b):
+        puts.append(b)
+        return b * 10
+
+    gen = pipeline.device_prefetch(iter([1, 2, 3]), put)
+    assert puts == []
+    assert next(gen) == 10 and puts == [1, 2]
+    assert list(gen) == [20, 30] and puts == [1, 2, 3]
+    assert list(pipeline.device_prefetch(iter([]), put)) == []
+
+
+def _bf16_bits(t):
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_host_stage_dtype_bit_equal_and_pooled():
+    """bf16: a torch tensor whose bits are the JAX package's ml_dtypes cast
+    (round to nearest even, ties and subnormals included); f32: the input
+    itself.  A pooled tensor still held, or viewed, is not handed out
+    again; a released one is."""
+    rng = np.random.default_rng(3)
+    bits = (rng.integers(0, 2 ** 16, 2 * 3 * 5 * 7, dtype=np.uint32) << 16
+            | 0x8000).astype(np.uint32)           # exact ties
+    x = (rng.standard_normal(bits.size) * 100).astype(np.float32)
+    x[::2] = np.where(np.isfinite(bits.view(np.float32)),
+                      bits.view(np.float32), 1.0)[::2]
+    x[:6] = [np.inf, -np.inf, 0.0, -0.0, 1e-40, -3e38]
+    x = x.reshape(2, 3, 5, 7)
+    ref = jax_assembly.host_stage_dtype(x, "bfloat16")
+    ours = port_assembly.host_stage_dtype(x, "bfloat16")
+    assert isinstance(ours, torch.Tensor) and ours.dtype == torch.bfloat16
+    assert tuple(ours.shape) == x.shape
+    np.testing.assert_array_equal(_bf16_bits(ours),
+                                  np.asarray(ref).view(np.uint16))
+    for module in (port_assembly, jax_assembly):
+        assert module.host_stage_dtype(x, "float32") is x
+    view = ours[0]
+    again = port_assembly.host_stage_dtype(x, "bfloat16")
+    del ours
+    held = {view._base.data_ptr(), again.data_ptr()}
+    third = port_assembly.host_stage_dtype(x, "bfloat16")
+    assert len(held) == 2 and third.data_ptr() not in held
+    ptr = third.data_ptr()
+    del third
+    assert port_assembly.host_stage_dtype(x, "bfloat16").data_ptr() == ptr
+
+
+@pytest.mark.parametrize("rows", [3, 4, 5])
+def test_pad_to_multiple_equal(rows):
+    """Padding by repeating the last sample, over a tuple, a dict and a
+    nested list, with the real count of the first leaf in JAX's order."""
+    rng = np.random.default_rng(rows)
+    x = rng.random((rows, 2, 3)).astype(np.float32)
+    t = rng.random((rows, 4)).astype(np.float32)
+    for batch in ((x, t), {"x": x, "t": t}, [x, (t,)]):
+        ours, n = port_mesh.pad_to_multiple(batch, 4)
+        ref, m = jax_mesh.pad_to_multiple(batch, 4)
+        assert n == m == rows
+        assert jax.tree.structure(ours) == jax.tree.structure(ref)
+        for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
+            assert a.shape[0] == (8 if rows > 4 else 4)
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_assign_class_masked_equal():
+    rng = np.random.default_rng(8)
+    vals = (rng.random((3, 2, 6)) * 100).astype(np.float32)
+    vals[0, 0, :2] = np.nan
+    mask = rng.random((3, 2, 6)) < 0.7
+    ours = port_assembly.assign_class_masked(vals, mask)
+    ref = jax_assembly.assign_class_masked(vals, mask)
+    assert ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours, ref)
+    assert (ours[~mask] == -1).all()

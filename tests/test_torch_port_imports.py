@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-``vit_grid_model_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter
+``vit_grid_model_tpu_torch`` (among them the inference entry points:
+serving, generation and station evaluation with their CLIs) and
+``chip_smoke.py`` in a fresh interpreter
 loads no ``jax``, no Triton, nothing of the JAX package
 (``vit_grid_model_tpu``) and nothing of ``benchmarks``, and builds no
 kernel."""
@@ -14,7 +16,11 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 53, names
+assert len(names) >= 64, names
+new = {'vit_grid_model_tpu_torch.' + m for m in (
+    'evaluation.serving', 'evaluation.generate', 'evaluation.station_eval',
+    'cli.generate_reanalysis', 'cli.station_eval', 'parallel.mesh')}
+assert new <= set(names), new - set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -25,6 +31,13 @@ bad = [m for m in sys.modules
                               'benchmarks')]
 assert not bad, bad
 assert library._lib is None
+from vit_grid_model_tpu_torch.data.assembly import (assign_class_masked,
+                                                    host_stage_dtype)
+from vit_grid_model_tpu_torch.data.datasets import (
+    Air_Simulation_Reanalysis_Dataset_by_stn)
+from vit_grid_model_tpu_torch.data.pipeline import device_prefetch
+from vit_grid_model_tpu_torch.evaluation.serving import Forecaster
+from vit_grid_model_tpu_torch.parallel.mesh import pad_to_multiple
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
 assert attention.wgrad_launches == 0
 assert attention_variants.layer_launches == 0

@@ -81,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", type=int, default=1,
                    help="only 1 is ported")
     p.add_argument("--collect_valid_times", action="store_true",
-                   help="not ported")
+                   help="reproduce reference quirk #19: collect encoded "
+                        "sample times with last input hour == 6")
     p.add_argument("--parity_report", type=str, default=None, metavar="BASE",
                    help="after evaluating, diff the summary against a "
                         "baseline table and pass/fail the <=1e-3 model-RMSE "
@@ -163,8 +164,6 @@ def main(argv=None, *, timing: driver.BatchTiming = None):
     torch.backends.cudnn.allow_tf32 = tf32
     if args.data_parallel != 1:
         raise ValueError("--data_parallel is not ported yet")
-    if args.collect_valid_times:
-        raise ValueError("--collect_valid_times is not ported yet")
 
     model = load_model(args, model_cfg)
     model = model.to(device=device, dtype=getattr(torch, args.compute_dtype))
@@ -177,7 +176,8 @@ def main(argv=None, *, timing: driver.BatchTiming = None):
         test_start=test_start, test_end=test_end,
         batch_size=args.batch_size, num_workers=args.num_workers,
         log_dir=args.log_dir, args_repr=str(args),
-        max_batches=args.max_batches, timing=timing)
+        max_batches=args.max_batches, timing=timing,
+        collect_valid_times=args.collect_valid_times)
     summary = metrics.summary()
     print("model RMSE: {:.4f}  MAE: {:.4f}  R: {:.4f}".format(
         summary["model"]["RMSE"], summary["model"]["MAE"],

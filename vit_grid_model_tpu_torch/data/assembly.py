@@ -20,6 +20,7 @@ from datetime import datetime, timedelta
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from vit_grid_model_tpu_torch.data import native, readers
 from vit_grid_model_tpu_torch.data.bufferpool import POOL
@@ -155,6 +156,23 @@ def sim_stack_to_nhwc_input(simulation: np.ndarray, total_steps: int,
     return out
 
 
+def host_stage_dtype(x: np.ndarray, compute_dtype: str):
+    """A model input in the compute dtype on the HOST when that is bf16:
+    a torch bf16 tensor from the pool (page-locked when a card is present,
+    so that a ``non_blocking`` copy to it is asynchronous), filled by a
+    round-to-nearest-even cast whose bits are those of the JAX package's
+    ``ml_dtypes`` cast.  Half-size buffers halve the host->device copy.  In
+    f32, ``x`` itself.  Keep the returned tensor until its copy to the
+    device has completed: the pool hands it out again once no one holds
+    it (``data/bufferpool.py``)."""
+    if compute_dtype == "bfloat16":
+        out = POOL.get_tensor(x.shape, torch.bfloat16,
+                              pin_memory=torch.cuda.is_available())
+        out.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+        return out
+    return x
+
+
 RANGE_4CLASS = ((-1.0, 15.0), (15.0, 35.0), (35.0, 75.0), (75.0, np.inf))
 CLASS_FOUR = (0, 1, 2, 3)
 
@@ -164,3 +182,11 @@ def assign_class(arr: np.ndarray) -> np.ndarray:
     out-of-range (NaN) (``dataset.py:8-9``)."""
     conds = [np.logical_and(arr > lo, arr <= hi) for lo, hi in RANGE_4CLASS]
     return np.select(conds, CLASS_FOUR, default=-1)
+
+
+def assign_class_masked(arr: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """``assign_class2``: invalid entries forced to -1
+    (``dataset.py:11-14``)."""
+    cls = assign_class(arr)
+    cls[~mask] = -1
+    return cls

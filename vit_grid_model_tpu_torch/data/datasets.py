@@ -1,10 +1,12 @@
-"""The two CMAQ datasets the port's CLIs read.
+"""The three CMAQ datasets the port's CLIs read.
 
 The port's own copy of the on-the-fly loading classes of
 ``vit_grid_model_tpu/data/datasets.py``: ``AirSimulationReanalysisDatasetV3``
-(the train sample) and ``AirSimulationReanalysisDatasetOnly`` (the shipped
-eval sample).  Each is a map-style dataset returning numpy arrays in the
-reference's per-class tuple order, plus a ``collate`` that stacks samples.
+(the train sample), ``AirSimulationReanalysisDatasetOnly`` (the shipped
+eval sample) and ``AirSimulationReanalysisDatasetByStn`` (the station
+evaluation's sample).  Each is a map-style dataset returning numpy arrays
+in the reference's per-class tuple order, plus a ``collate`` that stacks
+samples.
 
 Windowing contract (``dataset.py:1089-1100``):
 ``mod_idx = idx + prev_len - 1``; inputs ``[mod_idx-input_dim+1, mod_idx]``;
@@ -237,3 +239,32 @@ class AirSimulationReanalysisDatasetOnly(_LazyCmaqDataset):
         curr, re = self._reanalysis_window(idx)
         cls = assembly.assign_class(re).astype(np.int32)
         return (sim, curr, re, cls, self.raw_times(idx), prev_pm25)
+
+
+class AirSimulationReanalysisDatasetByStn(_LazyCmaqDataset):
+    """v3 + station-level prediction targets/masks/classes for station-wise
+    scoring (``dataset.py:1833-2213``).  NOTE: unlike the other station
+    datasets the validity flag is NOT inverted here (``dataset.py:1889``),
+    so ``stn_cls`` is -1 at exactly the VALID stations; both quirks are
+    the reference's, kept."""
+
+    # (feats, masks, SIM, curr, re, cls, t, PREV, vals, mask, stn_cls)
+    _sim_slots = (2, 7)
+
+    def __getitem__(self, idx):
+        m = self._mod_idx(idx)
+        sim, prev_pm25 = self._simulation_and_prev(idx)
+        curr, re = self._reanalysis_window(idx)
+        cls = assembly.assign_class(re).astype(np.int32)
+        vals = np.asarray(
+            self.feats[m + 1:m + 1 + self.output_dim, :self.korea_stn_num, 0],
+            dtype=np.float32)
+        mask = self.feats[m + 1:m + 1 + self.output_dim,
+                          :self.korea_stn_num, 6].astype(bool)
+        stn_cls = assembly.assign_class_masked(vals, mask).astype(np.int32)
+        return (self.load_feats(idx), self.load_masks(idx), sim, curr, re,
+                cls, self.raw_times(idx), prev_pm25, vals, mask, stn_cls)
+
+
+# the reference's class name
+Air_Simulation_Reanalysis_Dataset_by_stn = AirSimulationReanalysisDatasetByStn

@@ -5,6 +5,7 @@ The port's own copy of ``BatchLoader`` from
 Assembly stays on host threads (numpy + file I/O, which release the GIL),
 batches come from the dataset's ``collate``, and a bounded queue of ready
 batches is prefetched so the device does not wait on the filesystem.
+``device_prefetch`` keeps one batch's host->device copy in flight.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator
 
 import numpy as np
 
@@ -188,3 +189,22 @@ class BatchLoader:
                     return
         finally:
             stop.set()
+
+
+def device_prefetch(batches: Iterator, put: Callable) -> Iterator:
+    """Overlap host->device transfer with compute: keep one batch in flight.
+
+    ``put`` stages one batch, typically a copy from page-locked memory with
+    ``non_blocking=True`` to an explicit device; batch k+1's ``put`` runs
+    before batch k is yielded, so its copy overlaps batch k's forward.
+    """
+    it = iter(batches)
+    try:
+        pending = put(next(it))
+    except StopIteration:
+        return
+    for nxt in it:
+        nxt_dev = put(nxt)
+        yield pending
+        pending = nxt_dev
+    yield pending

@@ -116,7 +116,8 @@ def write_cmaq_range(sim_data_path: str, start_utc: datetime,
     return n
 
 
-def write_ground_obs(data_path: str, times_kst: Sequence[datetime]) -> None:
+def write_ground_obs(data_path: str, times_kst: Sequence[datetime],
+                     total_stn: int, feat_dim: int = 12) -> None:
     """Hourly station observation files: (stations, feat_dim + 1); col 0
     PM2.5, col 6 invalid flag, last col station mask."""
     for t in times_kst:
@@ -126,32 +127,32 @@ def write_ground_obs(data_path: str, times_kst: Sequence[datetime]) -> None:
         if os.path.exists(path):
             continue
         rng = _rng("obs", t.strftime("%Y%m%d%H"))
-        arr = rng.random((KOREA_STATIONS + CHINA_STATIONS, FEAT_DIM + 1)
-                         ).astype(np.float32)
+        arr = rng.random((total_stn, feat_dim + 1)).astype(np.float32)
         arr[:, 0] = 10.0 + 40.0 * arr[:, 0]            # PM2.5-ish
         arr[:, 6] = (arr[:, 6] < 0.05).astype(np.float32)  # ~5% invalid
         arr[:, -1] = 1.0
         np.save(path, arr)
 
 
-def write_station_infos(data_path: str) -> None:
+def write_station_infos(data_path: str, korea_stn_num: int = 20,
+                        china_stn_num: int = 5) -> None:
     d = f"{data_path}/station_infos"
     os.makedirs(d, exist_ok=True)
     regions = ["Seoul", "Busan", "Daegu", "Incheon"]
     rng = _rng("stations")
     with open(f"{d}/korea.txt", "w") as f:
-        for i in range(KOREA_STATIONS):
+        for i in range(korea_stn_num):
             lat = 33.0 + 5.0 * rng.random()
             lon = 125.0 + 4.0 * rng.random()
             f.write(f"{i},KR{i:03d},{lat:.4f},{lon:.4f},"
                     f"{regions[i % len(regions)]}\n")
     with open(f"{d}/china.txt", "w") as f:
-        for i in range(CHINA_STATIONS):
+        for i in range(china_stn_num):
             lat = 30.0 + 10.0 * rng.random()
             lon = 110.0 + 10.0 * rng.random()
             f.write(f"{i},CN{i:03d},{lat:.4f},{lon:.4f},China\n")
     with open(f"{d}/coords.txt", "w") as f:
-        for i in range(KOREA_STATIONS):
+        for i in range(korea_stn_num):
             f.write(f"{int(rng.integers(0, GRID[0]))},"
                     f"{int(rng.integers(0, GRID[1]))}\n")
     from scipy.io import netcdf_file
@@ -183,23 +184,22 @@ def write_feat_infos(data_path: str) -> None:
             f.write(f"{name},{mean},{std}\n")
 
 
-KOREA_STATIONS, CHINA_STATIONS, FEAT_DIM = 20, 5, 12
-
-
 def generate_tree(root: str, start_kst: datetime, end_kst: datetime, *,
-                  prev_len: int = 13, output_dim: int = 12) -> Dict[str, str]:
-    """Write a complete synthetic data tree for a KST eval window, with
-    20 Korean and 5 Chinese stations.  Returns the three path arguments of
-    the reference CLI."""
+                  prev_len: int = 13, output_dim: int = 12,
+                  korea_stn_num: int = 20, china_stn_num: int = 5,
+                  feat_dim: int = 12) -> Dict[str, str]:
+    """Write a complete synthetic data tree for a KST eval window.
+    Returns the three path arguments of the reference CLI."""
     data_path = os.path.join(root, "preprocessed")
     sim_path = os.path.join(root, "cmaq_sim")
     re_path = os.path.join(root, "cmaq_analysis")
 
     times = hourly_range(start_kst - timedelta(hours=prev_len - 1),
                          end_kst + timedelta(hours=output_dim))
-    write_station_infos(data_path)
+    write_station_infos(data_path, korea_stn_num, china_stn_num)
     write_feat_infos(data_path)
-    write_ground_obs(data_path, times)
+    write_ground_obs(data_path, times, korea_stn_num + china_stn_num,
+                     feat_dim)
     # reanalysis + cycle files over the UTC span the windows touch
     start_utc = times[0] - timedelta(hours=9)
     end_utc = times[-1] - timedelta(hours=9)

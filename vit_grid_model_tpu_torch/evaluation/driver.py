@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from vit_grid_model_tpu_torch.core.config import DataConfig
-from vit_grid_model_tpu_torch.data.assembly import (sim_stack_to_model_input,
+from vit_grid_model_tpu_torch.data.assembly import (host_stage_dtype,
+                                                    sim_stack_to_model_input,
                                                     sim_stack_to_nhwc_input)
 from vit_grid_model_tpu_torch.data.datasets import (
     AirSimulationReanalysisDatasetOnly)
@@ -33,6 +34,38 @@ from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
 from vit_grid_model_tpu_torch.evaluation import logwriter
 from vit_grid_model_tpu_torch.evaluation.metrics import EvaluationMetrics
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
+
+
+def resolve_device(device) -> torch.device:
+    """The device an inference entry point runs on: CUDA unless the caller
+    asks for the CPU; raises when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device}: CUDA is not available (ask for the "
+                           "CPU explicitly to run there)")
+    return device
+
+
+def compute_dtype_of(model: MetNet3) -> str:
+    """The model's compute dtype, its parameters' dtype, by config name."""
+    return ("bfloat16" if model.up.weight.dtype == torch.bfloat16
+            else "float32")
+
+
+def stage_input(x: np.ndarray, timestamps, compute_dtype: str, device):
+    """A model input and its timestamps on ``device`` for the inference
+    entry points: ``x`` cast on the host when the compute dtype is bf16
+    (``host_stage_dtype``), both copied with ``non_blocking=True``.
+    Returns (x, timestamps, the host tensor x was copied from).  Keep the
+    last until the copy has completed (the forward's output read back):
+    the pool hands it out again once no one holds it."""
+    host = host_stage_dtype(x, compute_dtype)
+    if isinstance(host, np.ndarray):
+        host = torch.from_numpy(host)
+    ts = torch.from_numpy(np.asarray(timestamps, np.float32))
+    return (host.to(device, non_blocking=True),
+            ts.to(device, non_blocking=True), host)
+
 
 # ---------------------------------------------------------------------------
 # metadata loading (the host helpers of the JAX driver)
@@ -161,11 +194,17 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
              batch_size: int = 25, num_workers: int = 4,
              log_dir: str = "logs", args_repr: str = "",
              progress: bool = True, max_batches: Optional[int] = None,
-             timing: Optional[BatchTiming] = None) -> EvaluationMetrics:
+             timing: Optional[BatchTiming] = None,
+             collect_valid_times: bool = False) -> EvaluationMetrics:
     """Run the evaluation with ``model`` (on its device, in its dtype);
     returns the metric accumulator and appends the reference-format log.
     ``timing``, when given, receives each batch's sample count, loop
-    seconds and their split by phase."""
+    seconds and their split by phase.
+
+    ``collect_valid_times``: reference quirk #19, the encoded sample times
+    whose last input hour is 6 (``evaluation_vit.py:285-289``) collected
+    into ``metrics.valid_times``; dead bookkeeping in the reference (it
+    feeds only a commented-out save path), kept behind this flag."""
     model_cfg = model.cfg
     device = model.up.weight.device
     grid = data_cfg.grid
@@ -241,6 +280,13 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
                 model=preds, persist=persist, sim_21h=sim_21h,
                 sim_avg=sim_avg, truth=reanalysis.reshape(B, L, cells),
                 truth_cls=re_cls.reshape(B, L, cells))
+            if collect_valid_times:
+                # samples whose LAST input hour is 06, encoded YYYYMMDDHH
+                last_in = np.asarray(batch[4])[:, data_cfg.input_dim - 1]
+                sel = last_in[last_in[:, 3] == 6.0].astype(np.int64)
+                metrics.valid_times.append(
+                    sel[:, 0] * 1000000 + sel[:, 1] * 10000
+                    + sel[:, 2] * 100 + sel[:, 3])
             marks.append(time.perf_counter())
             if timing is not None:
                 timing.samples.append(B)

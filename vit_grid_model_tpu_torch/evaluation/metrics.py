@@ -53,11 +53,15 @@ class PearsonMoments:
         self.syy += np.square(y).sum()
         self.sxy += (x * y).sum()
 
-    def r(self) -> float:
+    def r(self, guard: float = 0.0) -> float:
+        """``guard`` > 0 clamps the variance product (the station
+        evaluation's degenerate samples give ~0 instead of NaN); the grid
+        evaluation keeps 0 for reference parity."""
         cov = self.sxy - self.sx * self.sy / self.n
         vx = self.sxx - self.sx ** 2 / self.n
         vy = self.syy - self.sy ** 2 / self.n
-        return float(cov / np.sqrt(vx * vy))
+        denom = np.sqrt(max(vx * vy, guard) if guard else vx * vy)
+        return float(cov / denom)
 
 
 def assign_class_eval(arr: np.ndarray) -> np.ndarray:
@@ -212,6 +216,10 @@ class EvaluationMetrics:
         self.valid_count = np.zeros(3 * output_dim)
         self.loss_sum = 0.0
         self.step_cnt = 0
+        # quirk #19 bookkeeping (``evaluation_vit.py:285-289``): per-batch
+        # encoded YYYYMMDDHH ints of samples with last input hour == 6;
+        # filled by the driver only under ``collect_valid_times``
+        self.valid_times: list = []
 
     def update(self, *, model: np.ndarray, persist: np.ndarray,
                sim_21h: np.ndarray, sim_avg: np.ndarray,
