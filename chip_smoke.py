@@ -83,7 +83,20 @@ evaluation) at the shipped configuration.  Phases:
    the generation CLI at its batch of 8 over 44 samples (a ragged last
    batch): one finite field a sample and lead, fields/s; (c) the station
    evaluation CLI with --fast at batch 25: its log block, n_obs > 0,
-   samples/s.  Each must have run every window attention through K1.
+   samples/s.  Each must have run every window attention through K1;
+14. data parallel: (a) each of the four CLIs under ``torchrun
+   --nproc_per_node 1`` with ``--data_parallel -1`` (the process group on
+   NCCL) at the shipped 12-hour configuration with --fast, against the same
+   CLI without torchrun on the same batches (phases 4, 13b and 13c's
+   outputs; training against an in-process run of 3 steps), logs, fields,
+   losses and weights within 1e-5 relative; (b) two processes on cuda:0
+   over gloo call the library functions with a process group: the
+   evaluation at batch 24 over 51 samples (24, 24 and a ragged 3 that rank
+   0 runs whole) and one train step at batch 4 with dropout 0.1, against
+   one process on the same card: the log and the loss within 1e-3
+   relative, the two ranks' trained states bit-equal, each rank's K1, K3,
+   K3-w and dropout-hash launches as expected.  Each sub-phase prints its
+   seconds.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -138,10 +151,39 @@ GENERATION_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 11, 19))
 GENERATION_BATCH = 8
 STATION_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 13, 2))
 
+# the CLIs' arguments: the --fast evaluation CLIs (phases 4, 13c, 14) at
+# the shipped 12-hour configuration, the generation CLI (13b, 14) at its
+# defaults, which are that configuration, and the --fast training CLI
+# (6, 14)
+FLAGSHIP_ARGV = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
+                 "--input_dim", "13", "--output_dim", "12", "--prev_len",
+                 "13", "--hidden_dim", "128", "--gpus", "0", "--model_name",
+                 "smoke", "--seed", str(SEED)]
+GENERATION_ARGV = ["--gpus", "0"]
+
+# phase 14: 14a runs each CLI under torchrun at world size 1 (NCCL) and
+# holds it to the same CLI without torchrun; 14b runs two ranks on cuda:0
+# over gloo, the evaluation at batch 24 over 51 samples (24, 24 and a
+# ragged 3 on rank 0) and one train step, against one process
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DP_TORCHRUN_TIMEOUT = 300
+DP_TORCHRUN_REL = 1e-5
+DP_TRAIN_STEPS = 3
+DP_EVAL_BATCH = 24
+DP_EVAL_WINDOW = (datetime(2023, 1, 10, 0), datetime(2023, 1, 12, 2))
+DP_RANKS_REL = 1e-3
+# the logs print 4 decimals: one unit of the last, and float noise
+LOG_UNIT = 1.0001e-4
+DP_DEVICE = "cuda:0"
+
 TRAIN_BATCH = 4
 TRAIN_WINDOWS = TRAIN_BATCH * 12 * WINDOWS_PER_SAMPLE      # 1,440
 TRAIN_STEPS = 12
 DROPOUT = 0.1
+TRAIN_ARGV = ["--fast", "--synthetic", "--batch_size", str(TRAIN_BATCH),
+              "--gpus", "0", "--dropout", str(DROPOUT), "--seed", str(SEED),
+              "--train_start", "2023-01-10T00", "--train_end",
+              "2023-01-12T23", "--model_name", "smoke"]
 DROPOUT_SEED = 2 ** 30 + 12345                 # above 2**30, as seeds reach
 # the training cases: (name, heads, dim_head, dim, conditioned, windows,
 # head-0 score offset, window size); window 5 has 29 tokens, which leave
@@ -166,6 +208,36 @@ _START = time.perf_counter()
 def phase(n, title):
     print(f"\n== phase {n}: {title} (at {time.perf_counter() - _START:.0f} s)",
           flush=True)
+
+
+def tree_argv(paths):
+    return ["--data_path", paths["data_path"],
+            "--sim_data_path", paths["sim_data_path"],
+            "--analysis_data_path", paths["analysis_data_path"]]
+
+
+def eval_argv(paths, window, log_dir: str):
+    """The --fast evaluation CLIs' arguments over ``window``."""
+    start, end = window
+    return FLAGSHIP_ARGV + tree_argv(paths) + [
+        "--test_start", start.strftime("%Y-%m-%dT%H"),
+        "--test_end", end.strftime("%Y-%m-%dT%H"), "--log_dir", log_dir]
+
+
+def generation_argv(paths, out_dir: str):
+    start, end = GENERATION_WINDOW
+    return GENERATION_ARGV + tree_argv(paths) + [
+        "--start", start.strftime("%Y-%m-%dT%H"),
+        "--end", end.strftime("%Y-%m-%dT%H"), "--out_dir", out_dir]
+
+
+def train_argv(steps: int, root: str):
+    """The --fast training CLI's arguments for ``steps`` steps, with its
+    tree and checkpoints under ``root``."""
+    return TRAIN_ARGV + [
+        "--steps", str(steps), "--checkpoint_every", str(steps),
+        "--log_every", "1", "--synthetic_root", os.path.join(root, "tree"),
+        "--checkpoint_dir", os.path.join(root, "check_points")]
 
 
 def attention_case(heads, dim_head, dim, conditioned, bw, offset, seed,
@@ -377,16 +449,7 @@ def main_path(card: str, root: str):
     readers.clear_caches()
     print(f"synthetic tree: {time.perf_counter() - t0:.1f} s", flush=True)
     log_dir = os.path.join(root, "logs")
-    argv = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
-            "--input_dim", "13", "--output_dim", "12", "--prev_len", "13",
-            "--hidden_dim", "128", "--gpus", "0",
-            "--data_path", paths["data_path"],
-            "--sim_data_path", paths["sim_data_path"],
-            "--analysis_data_path", paths["analysis_data_path"],
-            "--model_name", "smoke", "--seed", str(SEED),
-            "--test_start", start.strftime("%Y-%m-%dT%H"),
-            "--test_end", end.strftime("%Y-%m-%dT%H"),
-            "--log_dir", log_dir, "--collect_valid_times"]
+    argv = eval_argv(paths, EVAL_WINDOW, log_dir) + ["--collect_valid_times"]
     timing = BatchTiming()
     cuda_attn.reset_launches()
     metrics = cli.main(argv, timing=timing)
@@ -542,11 +605,7 @@ def generation_path(paths, root: str, card: str):
     if samples % GENERATION_BATCH == 0:
         raise AssertionError("the generation window must end ragged")
     out_dir = os.path.join(root, "fields")
-    argv = ["--data_path", paths["data_path"],
-            "--sim_data_path", paths["sim_data_path"],
-            "--analysis_data_path", paths["analysis_data_path"],
-            "--gpus", "0", "--start", start.strftime("%Y-%m-%dT%H"),
-            "--end", end.strftime("%Y-%m-%dT%H"), "--out_dir", out_dir]
+    argv = generation_argv(paths, out_dir)
     readers.clear_caches()
     timing = BatchTiming()
     cuda_attn.reset_launches()
@@ -585,18 +644,8 @@ def station_path(paths, root: str, card: str):
     from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
 
-    start, end = STATION_WINDOW
     log_dir = os.path.join(root, "station_logs")
-    argv = ["--fast", "--batch_size", str(FLAGSHIP_BATCH),
-            "--input_dim", "13", "--output_dim", "12", "--prev_len", "13",
-            "--hidden_dim", "128", "--gpus", "0",
-            "--data_path", paths["data_path"],
-            "--sim_data_path", paths["sim_data_path"],
-            "--analysis_data_path", paths["analysis_data_path"],
-            "--model_name", "smoke", "--seed", str(SEED),
-            "--test_start", start.strftime("%Y-%m-%dT%H"),
-            "--test_end", end.strftime("%Y-%m-%dT%H"),
-            "--log_dir", log_dir]
+    argv = eval_argv(paths, STATION_WINDOW, log_dir)
     readers.clear_caches()
     timing = BatchTiming()
     cuda_attn.reset_launches()
@@ -625,6 +674,336 @@ def station_path(paths, root: str, card: str):
           f"{steady:.2f} samples/s; first batch {timing.seconds[0]:.2f} s; "
           f"card: {card}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: data parallel
+# ---------------------------------------------------------------------------
+
+
+def _kill_group(proc) -> None:
+    """Stop a process started in its own session, and its children."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def torchrun(module: str, argv, timeout: float = DP_TORCHRUN_TIMEOUT) -> str:
+    """``torchrun --standalone --nproc_per_node 1 -m module argv`` from the
+    checkout's root; returns its standard output, raises when it fails.  It
+    runs in a session of its own, which is stopped whole on a timeout."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", module, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_group(proc)
+        raise AssertionError(f"torchrun {module}: no end in {timeout} s")
+    if proc.returncode != 0:
+        print(err[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"torchrun {module} exited {proc.returncode}")
+    print(f"torchrun --nproc_per_node 1 -m {module}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def logs_close(ours: str, ref: str, rel: float, what: str):
+    """Two metric logs: the same lines, the argument line aside, each
+    number within ``rel`` of the reference's plus one unit of the log's
+    fourth decimal (two values a hair apart can round one unit apart).
+    Returns the count of numbers compared and the largest |difference|."""
+    a, b = ours.splitlines()[1:], ref.splitlines()[1:]
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{what}: {len(a)} lines against {len(b)}")
+    n, worst = 0, 0.0
+    for la, lb in zip(a, b):
+        ta, tb = la.split(), lb.split()
+        if len(ta) != len(tb):
+            raise AssertionError(f"{what}: {la!r} against {lb!r}")
+        for x, y in zip(ta, tb):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                if x != y:
+                    raise AssertionError(f"{what}: {la!r} against {lb!r}")
+                continue
+            n += 1
+            if np.isfinite(fx) and np.isfinite(fy):
+                worst = max(worst, abs(fx - fy))
+            if not (abs(fx - fy) <= rel * abs(fy) + LOG_UNIT
+                    or (np.isnan(fx) and np.isnan(fy))):
+                raise AssertionError(f"{what}: {la!r} against {lb!r}")
+    return n, worst
+
+
+def read_log(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def torchrun_clis(paths, root: str):
+    """Phase 14a: each of the four CLIs under torchrun at world size 1 with
+    ``--data_parallel -1`` (the process group on NCCL), against the same
+    CLI without torchrun on the same batches: the evaluation and the
+    station evaluation against phases 4 and 13c's logs, the generation
+    against phase 13b's fields, and training against an in-process run of
+    the same DP_TRAIN_STEPS steps (its losses and its .pkt)."""
+    import re
+
+    import torch
+
+    from vit_grid_model_tpu_torch.cli import train_vit
+
+    pkg = "vit_grid_model_tpu_torch.cli."
+    dp = ["--data_parallel", "-1"]
+    t0 = time.perf_counter()
+    log_dir = os.path.join(root, "logs14")
+    torchrun(pkg + "evaluation_vit", eval_argv(paths, EVAL_WINDOW, log_dir)
+             + ["--collect_valid_times"] + dp)
+    n, worst = logs_close(
+        read_log(os.path.join(log_dir, "test_smoke.log")),
+        read_log(os.path.join(root, "logs", "test_smoke.log")),
+        DP_TORCHRUN_REL, "evaluation under torchrun")
+    print(f"evaluation: {n} numbers of the log within {DP_TORCHRUN_REL:g} "
+          f"of phase 4's (max|d| {worst:.4g}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    torchrun(pkg + "station_eval",
+             eval_argv(paths, STATION_WINDOW, log_dir) + dp)
+    n, worst = logs_close(
+        read_log(os.path.join(log_dir, "test_smoke_by_stn.log")),
+        read_log(os.path.join(root, "station_logs", "test_smoke_by_stn.log")),
+        DP_TORCHRUN_REL, "station evaluation under torchrun")
+    print(f"station evaluation: {n} numbers of the log within "
+          f"{DP_TORCHRUN_REL:g} of phase 13c's (max|d| {worst:.4g}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "fields14")
+    # as @FILE: torchrun's parser takes --start for an ambiguous
+    # abbreviation of --start-method/--start_method on some versions
+    args_file = os.path.join(root, "generation14.args")
+    with open(args_file, "w") as f:
+        f.write("\n".join(generation_argv(paths, out_dir) + dp) + "\n")
+    torchrun(pkg + "generate_reanalysis", ["@" + args_file])
+    names = sorted(os.listdir(out_dir))
+    if names != sorted(os.listdir(os.path.join(root, "fields"))):
+        raise AssertionError("generation under torchrun wrote other files")
+    worst = 0.0
+    for name in names:
+        ours = np.load(os.path.join(out_dir, name))
+        ref = np.load(os.path.join(root, "fields", name))
+        worst = max(worst, float(np.abs(ours - ref).max()
+                                 / np.abs(ref).max()))
+    if not worst <= DP_TORCHRUN_REL:
+        raise AssertionError(f"generation under torchrun: a field differs "
+                             f"by {worst:.3e} of its max")
+    print(f"generation: {len(names)} fields, max|d| / max|field| = "
+          f"{worst:.3e} against phase 13b's; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    # the in-process run takes a fresh process's float32 switches, as the
+    # torchrun one does (the --fast evaluation CLIs turned TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    runs = {}
+    for name in ("in-process", "torchrun"):
+        run_root = os.path.join(root, f"train14_{name}")
+        argv = train_argv(DP_TRAIN_STEPS, run_root)
+        if name == "torchrun":
+            text = torchrun(pkg + "train_vit", argv + dp)
+        else:
+            lines = []
+            train_vit.main(argv, log=lines.append)
+            text = "\n".join(lines)
+        losses = [float(v) for v in re.findall(r"loss=(\S+)", text)]
+        sd = torch.load(os.path.join(run_root, "check_points", "smoke.pkt"),
+                        weights_only=True)
+        runs[name] = (losses, sd)
+    (l1, sd1), (l2, sd2) = runs["in-process"], runs["torchrun"]
+    if len(l1) != DP_TRAIN_STEPS or len(l2) != len(l1) or not all(
+            abs(a - b) <= DP_TORCHRUN_REL * abs(b) + LOG_UNIT
+            for a, b in zip(l2, l1)):
+        raise AssertionError(f"training under torchrun: losses {l2} "
+                             f"against {l1}")
+    worst = max(float((sd2[k].float() - v.float()).abs().max()
+                      / max(v.float().abs().max(), 1e-30))
+                for k, v in sd1.items() if v.is_floating_point())
+    if not worst <= DP_TORCHRUN_REL:
+        raise AssertionError(f"training under torchrun: a weight differs "
+                             f"by {worst:.3e} of its max")
+    print(f"training, {DP_TRAIN_STEPS} steps: losses {l2} against {l1}; "
+          f".pkt max|d| / max|w| = {worst:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def dp_eval_configs(paths):
+    """The --fast evaluation CLI's configs for phase 14b's window."""
+    from vit_grid_model_tpu_torch.cli import evaluation_vit as ev
+
+    args = ev.build_parser().parse_args(eval_argv(paths, DP_EVAL_WINDOW,
+                                                  "unused"))
+    return ev.build_configs(args)
+
+
+def dp_train_batch(cfg, group):
+    """Phase 14b's train batch: TRAIN_BATCH samples of ``cfg``'s input,
+    from SEED; this rank's rows of them with a process ``group``, and the
+    global timestamps."""
+    from vit_grid_model_tpu_torch.parallel.mesh import shard_rows
+
+    rng = np.random.default_rng(SEED + 14)
+    b, t, hw = TRAIN_BATCH, cfg.window_size, (cfg.input_height,
+                                              cfg.input_width)
+    ts = np.stack([np.full((b, t), 2023.0), rng.integers(1, 13, (b, t)),
+                   rng.integers(1, 29, (b, t)),
+                   rng.integers(0, 24, (b, t))], -1).astype(np.float32)
+    x = rng.random((b, t, cfg.n_variables) + hw) * 50
+    targets = rng.random((b, cfg.end_lead_time) + hw) * 60
+    return {"x": shard_rows(x.astype(np.float32), group), "timestamps": ts,
+            "targets": shard_rows(targets.astype(np.float32), group)}
+
+
+def dp_run(paths, log_dir: str, group):
+    """Phase 14b's work on one rank (``group``) or in one process (None):
+    the --fast evaluation over DP_EVAL_WINDOW at batch DP_EVAL_BATCH, then
+    one --fast train step at dropout DROPOUT.  Returns the evaluation's log
+    (None off rank 0), the step's loss, a digest of the trained state and
+    the kernels' launches in each part."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from vit_grid_model_tpu_torch.core import distributed
+    from vit_grid_model_tpu_torch.core.config import TrainConfig
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.evaluation import driver
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.train.trainer import (build_train_step,
+                                                        init_train_state)
+
+    dev = torch.device(DP_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    data_cfg, cfg, start, end = dp_eval_configs(paths)
+    model = seeded_model(cfg, SEED).to(dev)
+    if group is not None:
+        distributed.broadcast_module(model, group)
+    model = model.to(torch.bfloat16)
+    cuda_attn.reset_launches()
+    t0 = time.perf_counter()
+    metrics = driver.evaluate(
+        model, data_cfg, model_name="dp", test_start=start, test_end=end,
+        batch_size=DP_EVAL_BATCH, num_workers=2, log_dir=log_dir,
+        progress=False, group=group)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = cuda_attn.launches
+    log = (read_log(os.path.join(log_dir, "test_dp.log"))
+           if metrics is not None else None)
+
+    tcfg = dataclasses.replace(cfg, nhwc_input=False, dropout=DROPOUT)
+    state = init_train_state(seeded_model(tcfg, SEED).to(dev),
+                             TrainConfig(batch_size=TRAIN_BATCH,
+                                         seed=SEED))
+    if group is not None:
+        distributed.broadcast_module(state.model, group)
+    step = build_train_step(tcfg, TrainConfig(batch_size=TRAIN_BATCH,
+                                              seed=SEED), group)
+    batch = dp_train_batch(tcfg, group)
+    cuda_attn.reset_launches()
+    t0 = time.perf_counter()
+    loss = float(step(state, batch)["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = (cuda_attn.launches, cuda_attn.bwd_launches,
+              cuda_attn.wgrad_launches, cuda_attn.hash_launches)
+    digest = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().view(-1)
+                      .view(torch.uint8).numpy().tobytes())
+    return dict(log=log, eval_launches=eval_launches, eval_s=eval_s,
+                loss=loss, train_counts=counts, step_s=step_s,
+                digest=digest.hexdigest())
+
+
+def dp_rank(paths, root: str):
+    """Phase 14b on one of two ranks on cuda:0."""
+    from vit_grid_model_tpu_torch.core import distributed
+
+    group = distributed.group()
+    return dp_run(paths, os.path.join(root, "logs14b"), group)
+
+
+def ranks_on_one_card(paths, root: str, card: str):
+    """Phase 14b: two processes on cuda:0 over gloo (a CLI would map rank 1
+    to cuda:1) run the library functions with a process group, against one
+    process on the same card: the evaluation log within DP_RANKS_REL, the
+    step's loss within DP_RANKS_REL, the two ranks' trained states
+    bit-equal, and each rank's kernel launches."""
+    from vit_grid_model_tpu_torch.parallel.local_ranks import run_local_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_local_ranks(dp_rank, 2, (paths, root), device=DP_DEVICE,
+                            root=root)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = dp_run(paths, os.path.join(root, "logs14b_one"), None)
+    one_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    layers = 1                                   # MaxViT depth (1,)
+    start, end = DP_EVAL_WINDOW
+    samples = int((end - start).total_seconds() // 3600) + 1
+    full, tail = divmod(samples, DP_EVAL_BATCH)
+    if not tail % 2:
+        raise AssertionError("phase 14b's window must end in a ragged batch")
+    want_eval = (2 * layers * (full + 1), 2 * layers * full)
+    got_eval = (r0["eval_launches"], r1["eval_launches"])
+    want_train = (2 * layers,) * 3 + (4 * layers,)
+    print(f"two ranks on cuda:0 over gloo: K1 launches in the evaluation "
+          f"{got_eval} (expected {want_eval}: rank 0 also runs the ragged "
+          f"{tail}); in the train step (K1, K3, K3-w, dropout hash) "
+          f"{r0['train_counts']} and {r1['train_counts']} (expected "
+          f"{want_train} each); one process: evaluation "
+          f"{one['eval_launches']}, step {one['train_counts']}", flush=True)
+    if r1["log"] is not None:
+        raise AssertionError("rank 1 wrote the evaluation log")
+    n, worst = logs_close(r0["log"], one["log"], DP_RANKS_REL,
+                          "two ranks against one process")
+    rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    print(f"evaluation: {n} numbers of rank 0's log within {DP_RANKS_REL:g} "
+          f"of one process's (max|d| {worst:.4g}); step loss {r0['loss']:.6f} and "
+          f"{r1['loss']:.6f} on the ranks, {one['loss']:.6f} in one process "
+          f"(rel {rel:.2e}); trained states {r0['digest'][:16]} and "
+          f"{r1['digest'][:16]}", flush=True)
+    if r0["loss"] != r1["loss"] or not rel <= DP_RANKS_REL:
+        raise AssertionError("the ranks' loss is not the one-process loss")
+    if r0["digest"] != r1["digest"]:
+        raise AssertionError("the ranks' trained states differ")
+    if got_eval != want_eval:
+        raise AssertionError("the ranks did not run their rows (and rank 0 "
+                             "the ragged batch) through K1")
+    if r0["train_counts"] != want_train or r1["train_counts"] != want_train:
+        raise AssertionError("a rank's train step did not run every window "
+                             "attention through K1, K3 and K3-w")
+    print(f"seconds: two ranks (spawn, build, evaluation and step) "
+          f"{spawn_s:.1f}, of which rank 0's evaluation {r0['eval_s']:.1f} "
+          f"and step {r0['step_s']:.2f}; one process {one_s:.1f}, of which "
+          f"evaluation {one['eval_s']:.1f} and step {one['step_s']:.2f}; "
+          f"card: {card}", flush=True)
+    return r0["eval_launches"], r0["train_counts"]
 
 
 def kernel_case(heads, dim_head, dim, conditioned, bw, offset, dev, dtype,
@@ -1000,14 +1379,7 @@ def train_path(card: str):
 
     with tempfile.TemporaryDirectory(prefix="vgm_train_") as root:
         ckpt_dir = os.path.join(root, "check_points")
-        argv = ["--fast", "--synthetic", "--batch_size", str(TRAIN_BATCH),
-                "--steps", str(TRAIN_STEPS), "--checkpoint_every",
-                str(TRAIN_STEPS), "--log_every", "1", "--gpus", "0",
-                "--dropout", str(DROPOUT), "--seed", str(SEED),
-                "--train_start", "2023-01-10T00",
-                "--train_end", "2023-01-12T23",
-                "--synthetic_root", os.path.join(root, "tree"),
-                "--checkpoint_dir", ckpt_dir, "--model_name", "smoke"]
+        argv = train_argv(TRAIN_STEPS, root)
         lines, seconds = [], []
 
         def log(line):
@@ -1768,6 +2140,16 @@ def run(root: str) -> int:
     station_launches = station_path(tree, root, card)
     print(f"phase 13c: {time.perf_counter() - t13:.1f} s", flush=True)
 
+    phase("14a", "data parallel: the four CLIs under torchrun (NCCL)")
+    t14 = time.perf_counter()
+    torchrun_clis(tree, root)
+    print(f"phase 14a: {time.perf_counter() - t14:.1f} s", flush=True)
+
+    phase("14b", "data parallel: two ranks on cuda:0 over gloo")
+    t14 = time.perf_counter()
+    dp_eval_launches, dp_train_counts = ranks_on_one_card(tree, root, card)
+    print(f"phase 14b: {time.perf_counter() - t14:.1f} s", flush=True)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
         "bfloat16"]
@@ -1787,7 +2169,10 @@ def run(root: str) -> int:
     print(f"window_attention_fwd launches by path: evaluation "
           f"{eval_launches}, training {train_counts['window_attention_fwd']}"
           f", serving {serving_launches}, generation {gen_launches}, "
-          f"station evaluation {station_launches}", flush=True)
+          f"station evaluation {station_launches}; data parallel, rank 0 of "
+          f"2: evaluation {dp_eval_launches}, train step "
+          f"{dp_train_counts[0]} (window_attention_bwd "
+          f"{dp_train_counts[1]})", flush=True)
     train_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2)
     print(f"window_attention_fwd, bf16: Bw 9,000 {k_ms:.3f} ms (bound "
           f"{fwd_bound[0]:.3f}); Bw 1,440 rate {DROPOUT} "

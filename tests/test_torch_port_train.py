@@ -344,7 +344,11 @@ def test_train_cli_writes_a_pkt_the_jax_evaluation_loads(tmp_path):
 
 
 def test_train_cli_refuses_data_parallel():
+    """Outside torchrun, a request for two ranks raises with the launch
+    line."""
     from vit_grid_model_tpu_torch.cli import train_vit
 
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="resolves to 2 devices.*torchrun "
+                       "--nproc_per_node 2 -m vit_grid_model_tpu_torch.cli."
+                       "train_vit"):
         train_vit.main(["--gpus", "cpu", "--data_parallel", "2"])

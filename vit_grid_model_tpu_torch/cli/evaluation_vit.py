@@ -7,6 +7,17 @@
 stem and host-prepared NHWC input; on the GPU the window attention always
 runs the hand-written kernel.  ``--precision highest`` turns TF32 off for
 matmuls and convolutions; any other value allows it.
+
+Data parallel: one process a GPU, launched by torchrun,
+
+    torchrun --nproc_per_node 8 -m vit_grid_model_tpu_torch.cli.\
+evaluation_vit --data_parallel -1 ...
+
+Each rank runs on ``cuda:LOCAL_RANK`` (``--gpus`` stays at its default 0,
+or names that card; ``--gpus cpu`` runs the ranks on the CPU over gloo) and
+evaluates its rows of every batch; rank 0 alone prints and writes the log.
+``--data_parallel`` is -1 (the world size) or the world size; without
+torchrun a request for more than one device raises with the line above.
 """
 
 from __future__ import annotations
@@ -18,19 +29,33 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import (DataConfig, GridConfig,
                                                   MetNet3Config)
 from vit_grid_model_tpu_torch.core.weights import (load_reference_checkpoint,
                                                    seeded_model)
 from vit_grid_model_tpu_torch.data import synthetic
 from vit_grid_model_tpu_torch.evaluation import driver, parity
+from vit_grid_model_tpu_torch.parallel.mesh import data_parallel_for_cli
+
+MODULE = "vit_grid_model_tpu_torch.cli.evaluation_vit"
+
+
+def launch_epilog(module: str) -> str:
+    """The ``--help`` text on data-parallel launches."""
+    return (f"Data parallel: `torchrun --nproc_per_node N -m {module} "
+            "--data_parallel -1 ...` runs one process a GPU, each on "
+            "cuda:LOCAL_RANK (--gpus cpu: the ranks on the CPU over gloo); "
+            "rank 0 alone prints and writes logs and checkpoints.")
 
 
 def build_parser() -> argparse.ArgumentParser:
     """The options of ``vit_grid_model_tpu/cli/evaluation_vit.py`` with the
     same defaults (``tests/test_torch_port_host.py`` holds them equal)."""
-    p = argparse.ArgumentParser(description="evaluation MultiAir")
+    p = argparse.ArgumentParser(description="evaluation MultiAir",
+                                epilog=launch_epilog(MODULE))
     # --- reference-compatible surface (defaults identical) ---
     p.add_argument("--seed", type=int, default=0, help="random seed")
     p.add_argument("--batch_size", type=int, default=24,
@@ -79,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--log_dir", type=str, default="logs")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="ranks: -1 or the world size under torchrun, 1 "
+                        "without")
     p.add_argument("--collect_valid_times", action="store_true",
                    help="reproduce reference quirk #19: collect encoded "
                         "sample times with last input hour == 6")
@@ -95,23 +121,51 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def select_device(gpus: str) -> torch.device:
+    """``--gpus``: the CPU, or ``cuda:N``.  Under torchrun a rank runs on
+    ``cuda:LOCAL_RANK``, which ``--gpus`` at its default 0 stands for; any
+    other card raises."""
     if gpus == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--gpus {gpus}: CUDA is not available "
                            "(use --gpus cpu for the CPU)")
+    if distributed.launched():
+        local = distributed.local_rank()
+        if int(gpus) not in (0, local):
+            raise ValueError(f"--gpus {gpus}: under torchrun this rank runs "
+                             f"on cuda:{local} (LOCAL_RANK)")
+        return torch.device(f"cuda:{local}")
     return torch.device(f"cuda:{int(gpus)}")
 
 
-def build_configs(args):
+def rank_print(group):
+    """``print`` on rank 0, a no-op on the other ranks."""
+    if distributed.is_primary(group):
+        return print
+    return lambda *a, **k: None
+
+
+def synthetic_tree(group, root: str, start: datetime, end: datetime,
+                   **kw):
+    """``synthetic.generate_tree`` written by rank 0 alone; every rank
+    returns its paths once it is written."""
+    paths = [None]
+    if distributed.is_primary(group):
+        paths[0] = synthetic.generate_tree(root, start, end, **kw)
+    if group is not None:
+        dist.broadcast_object_list(paths, 0, group=group)
+    return paths[0]
+
+
+def build_configs(args, group=None):
     """Synthetic-tree generation, DataConfig, the --fast coupling and the
     MetNet3Config.  Mutates ``args`` (paths, compute_dtype, precision) as
     the JAX CLI does.  Returns (data_cfg, model_cfg, test_start, test_end)."""
     test_start = datetime.fromisoformat(args.test_start)
     test_end = datetime.fromisoformat(args.test_end)
     if args.synthetic:
-        paths = synthetic.generate_tree(
-            args.synthetic_root, test_start, test_end,
+        paths = synthetic_tree(
+            group, args.synthetic_root, test_start, test_end,
             prev_len=args.prev_len, output_dim=args.output_dim)
         args.data_path = paths["data_path"]
         args.sim_data_path = paths["sim_data_path"]
@@ -136,7 +190,7 @@ def build_configs(args):
     return data_cfg, model_cfg, test_start, test_end
 
 
-def load_model(args, model_cfg: MetNet3Config):
+def load_model(args, model_cfg: MetNet3Config, say=print):
     """``--checkpoint`` or ``check_points/{model_name}.pkt`` when it exists,
     else weights drawn from ``--seed`` (synthetic smoke runs)."""
     ckpt = args.checkpoint or f"check_points/{args.model_name}.pkt"
@@ -144,40 +198,56 @@ def load_model(args, model_cfg: MetNet3Config):
         if not ckpt.endswith(".pkt"):
             raise ValueError(f"{ckpt}: the port loads torch .pkt "
                              "checkpoints only")
-        print(f"loaded torch checkpoint: {ckpt}")
+        say(f"loaded torch checkpoint: {ckpt}")
         return load_reference_checkpoint(ckpt, model_cfg)
     if args.checkpoint is not None:
         raise FileNotFoundError(f"checkpoint not found: {ckpt}")
-    print(f"checkpoint {ckpt} not found; using seeded random weights "
-          "(synthetic smoke mode)")
+    say(f"checkpoint {ckpt} not found; using seeded random weights "
+        "(synthetic smoke mode)")
     return seeded_model(model_cfg, args.seed)
 
 
+def place_model(model, device, dtype: str, group, say=print):
+    """``model`` on ``device`` in ``dtype``; with a process group, rank 0's
+    f32 weights broadcast to every rank before the cast."""
+    model = model.to(device)
+    if group is not None:
+        distributed.broadcast_module(model, group)
+    model = model.to(dtype=getattr(torch, dtype))
+    say(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else "")
+        + (f"; rank 0 of {distributed.world_size(group)}"
+           if group is not None else ""))
+    return model
+
+
 def main(argv=None, *, timing: driver.BatchTiming = None):
+    """Evaluate and return the metrics (None on ranks other than 0)."""
     args = build_parser().parse_args(argv)
     device = select_device(args.gpus)
+    group = data_parallel_for_cli(args.data_parallel, args.batch_size,
+                                  device, module=MODULE)
+    say = rank_print(group)
     np.random.seed(args.seed)
-    data_cfg, model_cfg, test_start, test_end = build_configs(args)
+    data_cfg, model_cfg, test_start, test_end = build_configs(args, group)
     # --fast resets args.precision, so the TF32 switches follow it
     tf32 = args.precision != "highest"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
-    if args.data_parallel != 1:
-        raise ValueError("--data_parallel is not ported yet")
 
-    model = load_model(args, model_cfg)
-    model = model.to(device=device, dtype=getattr(torch, args.compute_dtype))
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
-    print(args)
+    model = place_model(load_model(args, model_cfg, say), device,
+                        args.compute_dtype, group, say)
+    say(args)
     metrics = driver.evaluate(
         model, data_cfg, model_name=args.model_name or "model",
         test_start=test_start, test_end=test_end,
         batch_size=args.batch_size, num_workers=args.num_workers,
         log_dir=args.log_dir, args_repr=str(args),
         max_batches=args.max_batches, timing=timing,
-        collect_valid_times=args.collect_valid_times)
+        collect_valid_times=args.collect_valid_times, group=group)
+    if metrics is None:
+        return None
     summary = metrics.summary()
     print("model RMSE: {:.4f}  MAE: {:.4f}  R: {:.4f}".format(
         summary["model"]["RMSE"], summary["model"]["MAE"],

@@ -4,10 +4,20 @@
 flags of ``vit_grid_model_tpu/cli/generate_reanalysis.py`` with the same
 defaults, plus ``--gpus N`` (run on ``cuda:N``, failing when CUDA is
 absent) or ``--gpus cpu``.  ``--data_parallel`` keeps its default of -1,
-all devices; it runs when that resolves to one device and raises when it
-resolves to more (data-parallel generation is not ported yet).
-``--pallas`` is accepted as in the JAX CLI; on the GPU the window
-attention always runs the hand-written kernel.
+all devices: one process a GPU, launched by torchrun,
+
+    torchrun --nproc_per_node 8 -m vit_grid_model_tpu_torch.cli.\
+generate_reanalysis ...
+
+each rank on ``cuda:LOCAL_RANK`` writing the fields of its rows of every
+batch.  The arguments may also come from a file, one a line, as
+``@FILE``: where torchrun's parser has both ``--start-method`` and
+``--start_method`` (and Python's argparse takes an abbreviation that two
+option strings share as ambiguous), ``--start`` on torchrun's command line
+stops it, and ``@FILE`` carries it past.  Without torchrun, -1 runs when it resolves to one device and
+raises with that line when it resolves to more.  ``--pallas`` is accepted
+as in the JAX CLI; on the GPU the window attention always runs the
+hand-written kernel.
 """
 
 from __future__ import annotations
@@ -16,21 +26,30 @@ import argparse
 import os
 from datetime import datetime
 
-import torch
-
-from vit_grid_model_tpu_torch.cli.evaluation_vit import select_device
+from vit_grid_model_tpu_torch.cli.evaluation_vit import (launch_epilog,
+                                                         place_model,
+                                                         rank_print,
+                                                         select_device)
 from vit_grid_model_tpu_torch.core.config import (DataConfig, GridConfig,
                                                   MetNet3Config)
 from vit_grid_model_tpu_torch.core.weights import (load_reference_checkpoint,
                                                    seeded_model)
 from vit_grid_model_tpu_torch.evaluation import driver
 from vit_grid_model_tpu_torch.evaluation.generate import generate_reanalysis
+from vit_grid_model_tpu_torch.parallel.mesh import data_parallel_for_cli
+
+MODULE = "vit_grid_model_tpu_torch.cli.generate_reanalysis"
 
 
 def build_parser() -> argparse.ArgumentParser:
     """The options of ``vit_grid_model_tpu/cli/generate_reanalysis.py``
     with the same defaults, and ``--gpus``."""
-    p = argparse.ArgumentParser(description="generate re-analysis fields")
+    p = argparse.ArgumentParser(
+        description="generate re-analysis fields",
+        epilog=launch_epilog(MODULE) + "  Under torchrun, pass the "
+        "arguments as @FILE (one a line) if torchrun takes --start for "
+        "an ambiguous abbreviation of --start-method.",
+        fromfile_prefix_chars="@")
     p.add_argument("--checkpoint", type=str, required=False, default=None)
     p.add_argument("--start", type=str, default="2023-01-01T00")
     p.add_argument("--end", type=str, default="2023-01-02T23")
@@ -45,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="-1: all devices")
+                   help="-1: all devices (the world size under torchrun)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--pallas", action="store_true", default=False)
     p.add_argument("--gpus", type=str, default="0",
@@ -53,22 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def data_parallel_devices(requested: int, device: torch.device) -> int:
-    """``--data_parallel``'s device count: -1 is every device of the
-    selected kind (the CPU counts as one).  Raises unless it is one."""
-    n = requested
-    if n == -1:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n != 1:
-        raise ValueError(f"--data_parallel {requested} resolves to {n} "
-                         "devices; data-parallel runs are not ported yet")
-    return n
-
-
 def main(argv=None, *, timing: driver.BatchTiming = None) -> int:
+    """Generate and return the number of fields all ranks wrote."""
     args = build_parser().parse_args(argv)
     device = select_device(args.gpus)
-    data_parallel_devices(args.data_parallel, device)
+    group = data_parallel_for_cli(args.data_parallel, args.batch_size,
+                                  device, module=MODULE)
+    say = rank_print(group)
 
     data_cfg = DataConfig(
         input_dim=args.input_dim, output_dim=args.output_dim,
@@ -95,15 +105,16 @@ def main(argv=None, *, timing: driver.BatchTiming = None) -> int:
                 f"checkpoint not found: {args.checkpoint}")
         model = load_reference_checkpoint(args.checkpoint, model_cfg)
     else:
-        print("no checkpoint: random init (smoke mode)")
+        say("no checkpoint: random init (smoke mode)")
         model = seeded_model(model_cfg, 0)
-    model = model.to(device=device, dtype=getattr(torch, args.compute_dtype))
+    model = place_model(model, device, args.compute_dtype, group, say)
 
     n = generate_reanalysis(
         model, data_cfg, start=datetime.fromisoformat(args.start),
         end=datetime.fromisoformat(args.end), out_dir=args.out_dir,
-        batch_size=args.batch_size, device=device, timing=timing)
-    print(f"wrote {n} fields to {args.out_dir}")
+        batch_size=args.batch_size, device=device, timing=timing,
+        group=group)
+    say(f"wrote {n} fields to {args.out_dir}")
     return n
 
 

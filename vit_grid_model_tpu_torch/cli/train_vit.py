@@ -11,6 +11,16 @@ change nothing.  Checkpoints: ``{model_name}.pkt`` (a plain state_dict that
 both evaluation CLIs load), ``{model_name}_state.pt`` (the full train state;
 ``--resume`` continues from it) and, with ``--ema_decay``,
 ``{model_name}_ema.pkt``.
+
+Data parallel: one process a GPU, launched by torchrun,
+
+    torchrun --nproc_per_node 8 -m vit_grid_model_tpu_torch.cli.train_vit \
+        --data_parallel -1 --batch_size 32 ...
+
+``--batch_size`` is the global batch, which divides over the ranks.  Each
+rank runs on ``cuda:LOCAL_RANK`` and every rank reads the same batches and
+trains on its rows of each (``train/trainer.py``); rank 0 alone logs and
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -24,13 +34,16 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from vit_grid_model_tpu_torch.cli.evaluation_vit import select_device
+from vit_grid_model_tpu_torch.cli.evaluation_vit import (launch_epilog,
+                                                         rank_print,
+                                                         select_device,
+                                                         synthetic_tree)
 from vit_grid_model_tpu_torch.core import checkpoint as ckpt
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import (DataConfig, GridConfig,
                                                   MetNet3Config, TrainConfig)
 from vit_grid_model_tpu_torch.core.weights import (load_reference_checkpoint,
                                                    seeded_model)
-from vit_grid_model_tpu_torch.data import synthetic
 from vit_grid_model_tpu_torch.data.assembly import (sim_stack_to_model_input,
                                                     sim_stack_to_nhwc_input)
 from vit_grid_model_tpu_torch.data.datasets import (
@@ -38,13 +51,18 @@ from vit_grid_model_tpu_torch.data.datasets import (
 from vit_grid_model_tpu_torch.data.pipeline import BatchLoader
 from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
 from vit_grid_model_tpu_torch.evaluation import driver
+from vit_grid_model_tpu_torch.parallel.mesh import (data_parallel_for_cli,
+                                                    shard_rows)
 from vit_grid_model_tpu_torch.train.trainer import (build_train_step,
                                                     init_train_state,
                                                     train_loop)
 
+MODULE = "vit_grid_model_tpu_torch.cli.train_vit"
+
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="train MetNet3 (PyTorch port)")
+    p = argparse.ArgumentParser(description="train MetNet3 (PyTorch port)",
+                                epilog=launch_epilog(MODULE))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--data_path", type=str,
@@ -121,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights and BN statistics (0 disables); saved as "
                         "{model_name}_ema.pkt")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="ranks: -1 or the world size under torchrun, 1 "
+                        "without")
     return p
 
 
@@ -129,10 +148,12 @@ def batches_from_dataset(dataset, data_cfg: DataConfig, batch_size: int,
                          num_workers: int, seed: int,
                          shuffle_mode: str = "samples",
                          shuffle_buffer: int = 8, nhwc: bool = False,
-                         pad_multiple: int = 14):
+                         pad_multiple: int = 14, group=None):
     """Dataset samples -> train-step batches of numpy arrays, looping
     epochs.  The model input is staged in f32 (NHWC with ``nhwc``) and cast
-    to the compute dtype on the device."""
+    to the compute dtype on the device.  With a process ``group`` every
+    rank reads the same global batches and assembles only its own rows;
+    the timestamps stay global (``build_train_step``'s contract)."""
     shuffle = (shuffle_mode if shuffle_mode in ("batches", "buffer")
                else True)
     # the loader's SeedSequence refuses negative seeds
@@ -143,12 +164,14 @@ def batches_from_dataset(dataset, data_cfg: DataConfig, batch_size: int,
     while True:
         for (feats, masks, sim, curr, reanalysis, cls, raw_times,
              prev) in loader:
+            sim = shard_rows(sim, group)
             x = (sim_stack_to_nhwc_input(sim, data_cfg.total_steps,
                                          pad_multiple, np.float32)
                  if nhwc else
                  sim_stack_to_model_input(sim, data_cfg.total_steps,
                                           out_dtype=np.float32))
-            yield {"x": x, "timestamps": raw_times, "targets": reanalysis}
+            yield {"x": x, "timestamps": raw_times,
+                   "targets": shard_rows(reanalysis, group)}
 
 
 def main(argv=None, *, step_seconds: Optional[List[float]] = None,
@@ -159,14 +182,16 @@ def main(argv=None, *, step_seconds: Optional[List[float]] = None,
     waits for its loss)."""
     args = build_parser().parse_args(argv)
     device = select_device(args.gpus)
-    if args.data_parallel != 1:
-        raise ValueError("--data_parallel is not ported yet")
+    group = data_parallel_for_cli(args.data_parallel, args.batch_size,
+                                  device, module=MODULE)
+    say = rank_print(group)
+    log = log if distributed.is_primary(group) else say
 
     train_start = datetime.fromisoformat(args.train_start)
     train_end = datetime.fromisoformat(args.train_end)
     if args.synthetic:
-        paths = synthetic.generate_tree(
-            args.synthetic_root, train_start, train_end,
+        paths = synthetic_tree(
+            group, args.synthetic_root, train_start, train_end,
             prev_len=args.prev_len, output_dim=args.output_dim)
         args.data_path = paths["data_path"]
         args.sim_data_path = paths["sim_data_path"]
@@ -208,26 +233,31 @@ def main(argv=None, *, step_seconds: Optional[List[float]] = None,
         china_stn_num=stations.china_stn_num, cmaq_size=(82, 67),
         sim_data_path=args.sim_data_path,
         reanalysis_data_path=args.analysis_data_path, feat_infos=feat_infos)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else "")
-          + f"; dataset: {len(dataset)} samples")
+    say(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else "")
+        + f"; dataset: {len(dataset)} samples"
+        + (f"; rank 0 of {distributed.world_size(group)}"
+           if group is not None else ""))
 
     # f32 master weights: a .pkt to resume from, else drawn from --seed as
     # the evaluation CLI draws them
     full_resume = bool(args.resume) and args.resume.endswith("_state.pt")
     if args.resume and not full_resume:
         model = load_reference_checkpoint(args.resume, model_cfg)
-        print(f"resumed parameters only from {args.resume} "
-              "(optimizer moments and schedule restart)")
+        say(f"resumed parameters only from {args.resume} "
+            "(optimizer moments and schedule restart)")
     else:
         model = seeded_model(model_cfg, args.seed)
-    state = init_train_state(model.to(device), train_cfg)
+    model = model.to(device)
+    if group is not None:
+        distributed.broadcast_module(model, group)
+    state = init_train_state(model, train_cfg)
     if full_resume:
-        ckpt.restore_train_state(args.resume, state)
-        print(f"resumed full train state from {args.resume} "
-              f"(step {state.step})")
-    step_fn = build_train_step(model_cfg, train_cfg)
+        ckpt.restore_train_state(args.resume, state, group)
+        say(f"resumed full train state from {args.resume} "
+            f"(step {state.step})")
+    step_fn = build_train_step(model_cfg, train_cfg, group)
 
     ckpt_base = os.path.join(args.checkpoint_dir, args.model_name)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
@@ -237,7 +267,7 @@ def main(argv=None, *, step_seconds: Optional[List[float]] = None,
         dataset, data_cfg, args.batch_size, args.num_workers,
         args.seed + state.step, shuffle_mode=args.shuffle_mode,
         shuffle_buffer=args.shuffle_buffer, nhwc=model_cfg.nhwc_input,
-        pad_multiple=model_cfg.pad_multiple)
+        pad_multiple=model_cfg.pad_multiple, group=group)
 
     done = 0
     remaining = args.steps - state.step
@@ -247,14 +277,15 @@ def main(argv=None, *, step_seconds: Optional[List[float]] = None,
                    log_every=args.log_every, log=log,
                    step_seconds=step_seconds)
         done += chunk
-        path = ckpt.save_state_dict(f"{ckpt_base}.pkt", state.model)
-        ckpt.save_train_state(f"{ckpt_base}_state.pt", state)
+        path = ckpt.save_state_dict(f"{ckpt_base}.pkt", state.model,
+                                    group=group)
+        ckpt.save_train_state(f"{ckpt_base}_state.pt", state, group)
         if state.ema is not None:
             ckpt.save_state_dict(f"{ckpt_base}_ema.pkt", state.model,
-                                 override=state.ema)
-        print(f"step {state.step}: checkpoint -> {path} "
-              f"(+ {ckpt_base}_state.pt)")
-    print("training complete")
+                                 override=state.ema, group=group)
+        say(f"step {state.step}: checkpoint -> {path} "
+            f"(+ {ckpt_base}_state.pt)")
+    say("training complete")
     return state
 
 

@@ -8,6 +8,13 @@ baselines, and the reference-format metric log.  The data plane
 are the port's own copies of the JAX package's host code
 (``vit_grid_model_tpu_torch/data``, ``evaluation/metrics.py``,
 ``evaluation/logwriter.py``).
+
+Data parallel (``evaluate(..., group=...)``): every rank reads the same
+batches and runs its own rows of each (``parallel/mesh.py::shard_rows``)
+with the global timestamps; rank 0 gathers the predictions in batch order
+and alone updates the metrics and writes the log.  A ragged final batch
+(one whose size does not divide over the ranks) runs whole on rank 0 at its
+true size, as the JAX package's ``UnshardedTail`` runs it.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import DataConfig
 from vit_grid_model_tpu_torch.data.assembly import (host_stage_dtype,
                                                     sim_stack_to_model_input,
@@ -34,6 +42,7 @@ from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
 from vit_grid_model_tpu_torch.evaluation import logwriter
 from vit_grid_model_tpu_torch.evaluation.metrics import EvaluationMetrics
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
+from vit_grid_model_tpu_torch.parallel.mesh import gather_rows, shard_rows
 
 
 def resolve_device(device) -> torch.device:
@@ -195,11 +204,14 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
              log_dir: str = "logs", args_repr: str = "",
              progress: bool = True, max_batches: Optional[int] = None,
              timing: Optional[BatchTiming] = None,
-             collect_valid_times: bool = False) -> EvaluationMetrics:
+             collect_valid_times: bool = False,
+             group=None) -> Optional[EvaluationMetrics]:
     """Run the evaluation with ``model`` (on its device, in its dtype);
     returns the metric accumulator and appends the reference-format log.
     ``timing``, when given, receives each batch's sample count, loop
-    seconds and their split by phase.
+    seconds and their split by phase.  With a process ``group``, every rank
+    calls it with the same arguments; rank 0 returns the metrics and writes
+    the log, the other ranks return None.
 
     ``collect_valid_times``: reference quirk #19, the encoded sample times
     whose last input hour is 6 (``evaluation_vit.py:285-289``) collected
@@ -230,13 +242,23 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
 
     metrics = EvaluationMetrics(data_cfg.output_dim)
     L = data_cfg.output_dim
+    primary = distributed.is_primary(group)
+    world = distributed.world_size(group)
 
     def stage(batch):
-        """Host assembly and host->device copy of one batch, in f32; the
-        model casts to its dtype on the device.  A ragged final batch keeps
-        its true size: padding it would change real predictions through the
-        batch-mixing time conditioning."""
+        """Host assembly and host->device copy of this rank's rows of one
+        batch, in f32, and the batch's timestamps; the model casts to its
+        dtype on the device.  A ragged final batch keeps its true size, on
+        rank 0 alone: padding it would change real predictions through the
+        batch-mixing time conditioning (reference quirk #11), and at its
+        true size it equals the single-process run.  ``x`` is None on a
+        rank that skips the batch."""
         simulation, raw_times = batch[0], batch[4]
+        ragged = simulation.shape[0] % world != 0
+        if ragged and not primary:
+            return batch, None, None, ragged
+        if not ragged:
+            simulation = shard_rows(simulation, group)
         if model_cfg.nhwc_input:
             x = sim_stack_to_nhwc_input(simulation, data_cfg.total_steps,
                                         model_cfg.pad_multiple, np.float32)
@@ -245,7 +267,7 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
                                          out_dtype=np.float32)
         x = torch.from_numpy(x).to(device)
         ts = torch.from_numpy(np.asarray(raw_times, dtype=np.float32))
-        return batch, x, ts.to(device)
+        return batch, x, ts.to(device), ragged
 
     it = iter(loader)
     if max_batches is not None:
@@ -258,16 +280,25 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
         while staged is not None:
             bi += 1
             tb = time.perf_counter()
-            batch, x, ts = staged
+            batch, x, ts, ragged = staged
             simulation, curr_re, reanalysis, re_cls = batch[:4]
             B = simulation.shape[0]
             marks = [tb]
-            preds_dev = model(x, ts)                 # queued on the device
+            # queued on the device; a ragged batch without the group, on
+            # rank 0 alone
+            if not ragged:
+                preds_dev = model(x, ts, group=group)
+            elif primary:
+                preds_dev = model(x, ts)
             marks.append(time.perf_counter())
             nxt = next(it, None)                     # stage k+1 meanwhile
             marks.append(time.perf_counter())
             staged = stage(nxt) if nxt is not None else None
             marks.append(time.perf_counter())
+            if not ragged:
+                preds_dev = gather_rows(preds_dev, group)
+            if not primary:
+                continue
             preds = preds_dev.cpu().numpy().reshape(B, L, cells)
             marks.append(time.perf_counter())
             preds = np.maximum(preds, 0.0)
@@ -299,6 +330,8 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
                 print(f"eval batch {bi} ({done} samples, {rate:.1f} "
                       f"samples/s cum)", flush=True)
 
+    if not primary:
+        return None
     with logwriter.open_log(model_name, log_dir) as f:
         logwriter.write_log(f, metrics, args_repr)
     return metrics

@@ -1,7 +1,8 @@
 """Station-level evaluation: grid predictions scored at station locations.
 
-The PyTorch counterpart of ``vit_grid_model_tpu/evaluation/station_eval.py``
-(its single-device path).  The reference ships the
+The PyTorch counterpart of ``vit_grid_model_tpu/evaluation/station_eval.py``,
+on one device or data parallel over a process group as the evaluation
+driver is (``evaluation/driver.py``).  The reference ships the
 ``Air_Simulation_Reanalysis_Dataset_by_stn`` dataset
 (``dataset.py:1833-2219``) but no driver that consumes it: run the grid
 model, sample the predicted fields at the stations' grid coordinates
@@ -19,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import DataConfig
 from vit_grid_model_tpu_torch.data.assembly import (sim_stack_to_model_input,
                                                     sim_stack_to_nhwc_input)
@@ -31,6 +33,7 @@ from vit_grid_model_tpu_torch.evaluation.metrics import (N_CLASSES,
                                                          PearsonMoments,
                                                          assign_class_eval)
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
+from vit_grid_model_tpu_torch.parallel.mesh import gather_rows, shard_rows
 
 
 @dataclasses.dataclass
@@ -102,13 +105,18 @@ def evaluate_by_station(model: MetNet3, data_cfg: DataConfig, *,
                         test_start: datetime, test_end: datetime,
                         batch_size: int = 8, num_workers: int = 4,
                         max_batches: Optional[int] = None, device="cuda",
-                        timing: Optional[eval_driver.BatchTiming] = None
-                        ) -> StationMetrics:
+                        timing: Optional[eval_driver.BatchTiming] = None,
+                        group=None) -> Optional[StationMetrics]:
     """Score ``model`` at the stations over the test window.  ``model`` is
     moved to ``device`` (CUDA by default, which raises when it is absent;
     the CPU only when asked for) and computes in its parameters' dtype.  A
     ragged final batch runs at its true size.  ``timing``, when given,
-    receives each batch's sample count and loop seconds."""
+    receives each batch's sample count and loop seconds.
+
+    With a process ``group``, each rank runs its rows of every batch with
+    the global timestamps and rank 0 gathers the predictions and alone
+    scores them (a ragged final batch runs whole on rank 0); rank 0 returns
+    the metrics, the other ranks None."""
     device = eval_driver.resolve_device(device)
     model = model.to(device).eval()
     model_cfg = model.cfg
@@ -136,6 +144,8 @@ def evaluate_by_station(model: MetNet3, data_cfg: DataConfig, *,
     rows = stations.sim_coords[:, 0]
     cols = stations.sim_coords[:, 1]
     metrics = StationMetrics()
+    primary = distributed.is_primary(group)
+    world = distributed.world_size(group)
     t_prev = time.perf_counter()
     with torch.inference_mode():
         for bi, batch in enumerate(loader):
@@ -143,17 +153,29 @@ def evaluate_by_station(model: MetNet3, data_cfg: DataConfig, *,
                 break
             (_, _, sim, _, _, _, raw_times, _, stn_vals, stn_mask,
              stn_cls) = batch
+            # a ragged batch runs whole on rank 0 at its true size: padding
+            # it would change real predictions through the batch-mixing
+            # time conditioning (reference quirk #11)
+            ragged = sim.shape[0] % world != 0
+            if ragged and not primary:
+                continue
+            mine = sim if ragged else shard_rows(sim, group)
             if model_cfg.nhwc_input:
                 # host-prepared device layout (see evaluation/driver.py)
-                x = sim_stack_to_nhwc_input(sim, data_cfg.total_steps,
+                x = sim_stack_to_nhwc_input(mine, data_cfg.total_steps,
                                             model_cfg.pad_multiple,
                                             np.float32)
             else:
-                x = sim_stack_to_model_input(sim, data_cfg.total_steps)
+                x = sim_stack_to_model_input(mine, data_cfg.total_steps)
             xd, td, _host = eval_driver.stage_input(x, raw_times,
                                                     compute_dtype, device)
-            preds = model(xd, td).cpu().numpy()
-            preds = np.maximum(preds, 0.0)   # evaluation_vit.py:254
+            if ragged:
+                preds = model(xd, td)
+            else:
+                preds = gather_rows(model(xd, td, group=group), group)
+            if not primary:
+                continue
+            preds = np.maximum(preds.cpu().numpy(), 0.0)  # evaluation_vit:254
             del stn_cls   # -1 at valid stations (see StationMetrics.update)
             stn_preds = preds[:, :, rows, cols]          # (B, L, korea)
             metrics.update(stn_preds, stn_vals, invalid_flag=stn_mask)
@@ -162,4 +184,4 @@ def evaluate_by_station(model: MetNet3, data_cfg: DataConfig, *,
                 timing.samples.append(sim.shape[0])
                 timing.seconds.append(now - t_prev)
             t_prev = now
-    return metrics
+    return metrics if primary else None

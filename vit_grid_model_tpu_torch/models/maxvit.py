@@ -81,20 +81,21 @@ class MaxViT(nn.Module):
 
     def forward(self, x: Tensor, cond: Tensor, *,
                 seeds: Optional[Sequence[int]] = None,
-                bn_stats: Optional[List] = None) -> Tensor:
+                bn_stats: Optional[List] = None, group=None) -> Tensor:
         """x: (B, C, H, W) with H, W divisible by the window size;
         cond: (B, cond_dim).  Returns (B, C', H, W).
 
         Training: ``seeds`` holds two dropout seeds per layer, and turns
         attention dropout on at ``self.dropout``; a ``bn_stats`` list turns
-        on training-mode MBConv batch-norms, which append to it."""
+        on training-mode MBConv batch-norms, which append to it, with
+        their statistics over the global batch of the process ``group``."""
         w, nr = self.window_size, self.num_register_tokens
         for li, ((conv, block_attn, grid_attn), registers) in enumerate(zip(
                 self.layers, self.register_tokens)):
             block_seed = grid_seed = None
             if seeds is not None:
                 block_seed, grid_seed = seeds[2 * li], seeds[2 * li + 1]
-            x = conv(x, bn_stats, self.fold_bn_eval)
+            x = conv(x, bn_stats, self.fold_bn_eval, group)
             b, d = x.shape[0], x.shape[1]
             x = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
 

@@ -20,6 +20,14 @@ the window attention drops out at ``cfg.dropout``.  Quirks kept:
 * the month/day/hour embeddings are concatenated along dim 0 and then
   viewed per row, which mixes rows across the batch.
 
+Data parallel (``forward(..., group=...)``): ``x`` holds this rank's rows
+of a global batch and ``timestamps`` the global batch's.  The time
+conditioning is computed over the global batch and this rank's rows taken
+(the mixing above reads other ranks' rows), the MBConv batch-norms take
+their statistics over the global batch, and each attention's dropout seed
+is offset per rank as the JAX package's sharded kernels offset it, so that
+the ranks together compute what one process computes on the global batch.
+
 ``cfg.fuse_lead_stem`` and ``cfg.nhwc_input`` select the lead-factorized
 stem and the host-prepared (B, Hp, Wp, T*C) input, and ``cfg.fold_bn_eval``
 the MBConv with its batch-norms folded (inference only), as in the JAX
@@ -35,6 +43,7 @@ from torch import Tensor, nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import MetNet3Config
 from vit_grid_model_tpu_torch.models.maxvit import MaxViT
 from vit_grid_model_tpu_torch.ops import nn as vnn
@@ -169,6 +178,18 @@ def standardize_pm_channels_nhwc(x: Tensor, cfg: MetNet3Config,
     return torch.where(interior & chan, (x - cfg.pm25_mean) / cfg.pm25_std, x)
 
 
+#: added to a dropout seed once per rank, in int32 wraparound, as
+#: ``vit_grid_model_tpu/ops/pallas/attention.py::window_attention_pallas_
+#: sharded`` adds ``axis_index * 0x3C6EF35F`` inside each shard
+SEED_STRIDE = 0x3C6EF35F
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """int32(seed + int32(rank * SEED_STRIDE)), wrapping as int32 does: the
+    product overflows from rank 3 on, the sum from rank 1 on."""
+    return (seed + rank * SEED_STRIDE + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
 # ---------------------------------------------------------------------------
 # MetNet3
 # ---------------------------------------------------------------------------
@@ -258,7 +279,7 @@ class MetNet3(nn.Module):
     def forward(self, x: Tensor, timestamps: Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 bn_stats: Optional[List] = None,
-                remat: bool = False) -> Tensor:
+                remat: bool = False, group=None) -> Tensor:
         """x: (B, T, C, H, W), or (B, Hp, Wp, T*C) zero-padded with the PM
         channels raw when ``cfg.nhwc_input``; timestamps: (B, T', 4) raw
         (year, month, day, hour) rows.  Returns (B, L, H, W) f32 fields.
@@ -268,8 +289,15 @@ class MetNet3(nn.Module):
         with ``cfg.dropout > 0`` each attention call's dropout seed is drawn
         from ``generator``, before the backbone, so that ``remat``
         (``torch.utils.checkpoint`` over the backbone) recomputes the same
-        masks."""
+        masks.
+
+        With a process ``group``, ``x`` is this rank's B rows of a global
+        batch of B * world rows, rows rank * B .. (rank + 1) * B - 1, and
+        ``timestamps`` is the global batch's (B * world, T', 4); every rank
+        draws the same seeds from its generator and offsets them by
+        ``rank_seed``."""
         cfg = self.cfg
+        rank = distributed.rank(group)
         seeds = None
         if self.training:
             if bn_stats is None:
@@ -278,9 +306,9 @@ class MetNet3(nn.Module):
                 if generator is None:
                     raise ValueError("a training forward with dropout needs "
                                      "a torch.Generator")
-                seeds = torch.randint(0, 2 ** 31 - 1,
-                                      (2 * sum(cfg.depth_tuple),),
-                                      generator=generator).tolist()
+                seeds = [rank_seed(s, rank) for s in torch.randint(
+                    0, 2 ** 31 - 1, (2 * sum(cfg.depth_tuple),),
+                    generator=generator).tolist()]
         B = x.shape[0]
         L = cfg.end_lead_time
         dtype = self.up.weight.dtype
@@ -308,10 +336,17 @@ class MetNet3(nn.Module):
 
         time_feats = None
         if cfg.concat_time_to_input:
+            # over the global batch: its rows mix across the batch
+            Bg = timestamps.shape[0]
+            if Bg != B * distributed.world_size(group):
+                raise ValueError(f"timestamps hold {Bg} rows for {B} rows "
+                                 "of x on each rank")
             row = min(6, timestamps.shape[1] - 1)
-            ts6 = timestamps[:, row, :].repeat_interleave(L, dim=0)  # (BL, 4)
-            ts6 = torch.cat([ts6, lead_times[:, None].to(ts6.dtype)], dim=-1)
-            time_feats = self._condition_time(ts6, B * L)
+            ts6 = timestamps[:, row, :].repeat_interleave(L, dim=0)
+            leads = torch.arange(1, L + 1, device=x.device).repeat(Bg)
+            ts6 = torch.cat([ts6, leads[:, None].to(ts6.dtype)], dim=-1)
+            time_feats = self._condition_time(ts6, Bg * L)
+            time_feats = time_feats[rank * B * L:(rank + 1) * B * L]
 
         x = x.to(dtype)
         cond = cond.to(dtype)
@@ -336,14 +371,16 @@ class MetNet3(nn.Module):
             def backbone(h, c):
                 stats = []
                 y = functional_call(self.vit, vit_params, (h, c),
-                                    dict(seeds=seeds, bn_stats=stats))
+                                    dict(seeds=seeds, bn_stats=stats,
+                                         group=group))
                 bns[:] = [bn for bn, _, _ in stats]
                 return (y, *[t for _, m, v in stats for t in (m, v)])
 
             out, *flat = checkpoint(backbone, out, cond, use_reentrant=False)
             bn_stats.extend(zip(bns, flat[0::2], flat[1::2]))
         else:
-            out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats)
+            out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats,
+                           group=group)
         out = vnn.conv2d_transpose(out, self.up.weight, self.up.bias, stride=2)
         out = self.resnet2(out, cond)
         out = unpad_hw(out, pv)

@@ -312,7 +312,8 @@ def window_attention(p: Attention, x: Tensor, cond: Optional[Tensor],
                      dropout_rate: float = 0.0) -> Tensor:
     """The fused attention of ``ops.attention.attention`` on (Bw, n, dim)
     window tokens, with attention dropout at ``dropout_rate`` drawn by the
-    counter hash from ``seed`` (an int in [0, 2**31 - 1))."""
+    counter hash from ``seed`` (an int32: a rank's offset seed may be
+    negative, ``models/metnet3.py::rank_seed``)."""
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("window_attention: dropout needs a seed")
     seed = 0 if seed is None else int(seed)

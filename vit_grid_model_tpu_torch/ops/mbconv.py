@@ -5,8 +5,9 @@ GELU -> depthwise 3x3 -> BN -> GELU -> squeeze-excite -> 1x1 project -> BN,
 with a residual only when ``dim_in == dim_out and not downsample``.  The
 hidden width is ``expansion_rate * dim_out`` and the block never changes
 the spatial size.  Given a ``bn_stats`` list, the block runs in training
-mode (``mbconv_train``): batch statistics, with each BatchNorm's updated
-running statistics appended as ``(bn, mean, var)``.  Without one,
+mode: batch statistics (over the global batch of a process ``group``),
+with each BatchNorm's updated running statistics appended as ``(bn, mean,
+var)``.  Without one,
 ``fold_bn`` folds each BatchNorm into its conv (``mbconv(fold_bn=True)``,
 inference only).  Its dropout stays 0, as ``maxvit.py`` runs it.  These
 run on stock ops (cuDNN), as the JAX package leaves MBConv to XLA.
@@ -44,7 +45,7 @@ class MBConv(nn.Sequential):
             nn.Conv2d(hidden, dim_out, 1), nn.BatchNorm2d(dim_out))
 
     def forward(self, x: Tensor, bn_stats: Optional[List] = None,
-                fold_bn: bool = False) -> Tensor:
+                fold_bn: bool = False, group=None) -> Tensor:
         expand, bn1, _, dw, bn2, _, se, project, bn3 = self
         if fold_bn and bn_stats is None:
             h = vnn.conv2d(x, *vnn.fold_bn_into_conv(expand.weight,
@@ -59,7 +60,7 @@ class MBConv(nn.Sequential):
         def norm(h, bn):
             if bn_stats is None:
                 return vnn.batch_norm(h, bn)
-            h, mean, var = vnn.batch_norm_train(h, bn)
+            h, mean, var = vnn.batch_norm_train(h, bn, group=group)
             bn_stats.append((bn, mean, var))
             return h
 
@@ -78,8 +79,8 @@ class MBConvResidual(nn.Module):
         self.fn = MBConv(dim, dim, **kw)
 
     def forward(self, x: Tensor, bn_stats: Optional[List] = None,
-                fold_bn: bool = False) -> Tensor:
-        return self.fn(x, bn_stats, fold_bn) + x
+                fold_bn: bool = False, group=None) -> Tensor:
+        return self.fn(x, bn_stats, fold_bn, group) + x
 
 
 def mbconv(dim_in: int, dim_out: int, *, downsample: bool,

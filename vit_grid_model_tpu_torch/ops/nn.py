@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from vit_grid_model_tpu_torch.core import distributed
+
 # ---------------------------------------------------------------------------
 # dense / embedding / convolutions
 # ---------------------------------------------------------------------------
@@ -62,7 +64,8 @@ def batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
 
 
 def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d, *,
-                     momentum: float = 0.1) -> Tuple[Tensor, Tensor, Tensor]:
+                     momentum: float = 0.1,
+                     group=None) -> Tuple[Tensor, Tensor, Tensor]:
     """Training-mode BatchNorm over NCHW channels, the counterpart of
     ``vit_grid_model_tpu/ops/nn.py::batch_norm(training=True)``.
 
@@ -70,11 +73,25 @@ def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d, *,
     var)``: the updated running statistics, with momentum 0.1 and the
     unbiased variance n/(n-1), detached and in x's dtype.  They are not
     written here: the trainer writes them into the module's f32 buffers
-    after the optimizer step, as ``trainer.py::_merge_bn`` does."""
+    after the optimizer step, as ``trainer.py::_merge_bn`` does.
+
+    With a process ``group``, ``x`` is this rank's share of the batch (equal
+    shares): the mean and variance are taken over the global batch by a
+    differentiable all-reduce of f32 sums, as the JAX package's batch
+    statistics span the mesh, and n counts the global batch.  One process
+    takes the same f32 sums without the all-reduce."""
     shape = (1, -1, 1, 1)
-    mean = x.mean(dim=(0, 2, 3))
-    var = (x - mean.view(shape)).square().mean(dim=(0, 2, 3))
-    count = x.numel() // x.shape[1]
+    dims = (0, 2, 3)
+    count = x.numel() // x.shape[1] * distributed.world_size(group)
+
+    def global_mean(t):
+        s = t.sum(dim=dims, dtype=torch.float32)
+        if group is not None:
+            s = distributed.all_reduce_sum(s, group)
+        return (s / count).to(x.dtype)
+
+    mean = global_mean(x)
+    var = global_mean((x - mean.view(shape)).square())
     y = ((x - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
          * bn.weight.view(shape) + bn.bias.view(shape))
     with torch.no_grad():

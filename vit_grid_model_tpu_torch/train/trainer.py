@@ -1,7 +1,8 @@
-"""Training step and loop: Focal-R supervised MetNet3 on one device.
+"""Training step and loop: Focal-R supervised MetNet3, on one device or
+data parallel over the ranks of a process group.
 
-Counterpart of ``vit_grid_model_tpu/train/trainer.py`` (single device; the
-data-parallel mesh is not ported).  One step is, in the JAX order:
+Counterpart of ``vit_grid_model_tpu/train/trainer.py``.  One step is, in
+the JAX order:
 
     forward (training mode) -> loss -> grads -> clip by global norm ->
     AdamW at the warmup-cosine learning rate -> BN running statistics
@@ -22,6 +23,16 @@ data-parallel mesh is not ported).  One step is, in the JAX order:
 * The EMA covers the parameters and the BN running statistics.
 * ``remat`` is ``torch.utils.checkpoint`` over the backbone; the dropout
   seeds are drawn outside it, so its recompute makes the same masks.
+* Data parallel (``build_train_step(..., group=...)``): every rank gets its
+  own rows of the global batch (``parallel/mesh.py::shard_rows``, taken
+  before the host assembly) and the global timestamps, which the time
+  conditioning reads.  The
+  batch-norm statistics span the global batch, each rank's loss is its sum
+  over the global count of valid cells, and the gradients are all-reduced
+  as a sum: the global batch's loss and gradient, as GSPMD computes them
+  on the JAX mesh.  Clipping, AdamW, the BN write-back and the EMA then run
+  identically on every rank, so the replicas stay equal; the metrics are
+  the global batch's.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 from torch import Tensor
 from torch.func import functional_call
 
+from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import MetNet3Config, TrainConfig
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.train import losses as L
@@ -100,13 +112,17 @@ def _to_device(a, device, dtype=None) -> Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig
+def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig,
+                     group=None
                      ) -> Callable[[TrainState, dict], Dict[str, Tensor]]:
     """``step(state, batch) -> metrics``, updating ``state`` in place.
 
     batch: 'x' (B,T,C,H,W) or the NHWC input, 'timestamps' (B,T,4),
     'targets' (B,L,H,W), optional 'mask' (B,L,H,W) bool; numpy arrays or
-    tensors.  Metrics are 0-d tensors on the device."""
+    tensors.  Metrics are 0-d tensors on the device.  With a process
+    ``group``, 'x', 'targets' and 'mask' hold this rank's rows of a global
+    batch that divides over the ranks (``parallel/mesh.py::shard_rows``),
+    and 'timestamps' the global batch's."""
     loss_kw = {}
     if train_cfg.loss == "focal_r":
         loss_kw = dict(beta=train_cfg.focal_beta, gamma=train_cfg.focal_gamma,
@@ -129,21 +145,30 @@ def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig
 
         bn_stats: list = []
         preds = model_forward(model, x, ts, dtype, generator=state.generator,
-                              bn_stats=bn_stats, remat=train_cfg.remat)
-        loss = loss_fn(preds, targets, mask)
+                              bn_stats=bn_stats, remat=train_cfg.remat,
+                              group=group)
+        loss = loss_fn(preds, targets, mask, group=group)
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # an unused parameter gets a zero gradient, as in optax (AdamW then
         # still decays it)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if group is not None:
+            # one all-reduce of every gradient, flattened: the sum of the
+            # ranks' shares is the global batch's gradient
+            flat = distributed.all_reduce_sum(
+                torch.cat([g.reshape(-1) for g in grads]), group)
+            grads = [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
+            loss = distributed.all_reduce_sum(loss.detach(), group)
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         # optax clip_by_global_norm: t / norm * max_norm where norm >= max
         clip = gnorm >= max_norm
         for p, g in zip(params, grads):
             p.grad = torch.where(clip, g / gnorm * max_norm, g)
-        for group in state.optimizer.param_groups:
-            group["lr"] = learning_rate(train_cfg, state.step)
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = learning_rate(train_cfg, state.step)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
@@ -157,11 +182,19 @@ def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig
                     e.copy_(e * d + sd[k] * (1.0 - d))
         state.step += 1
         preds = preds.detach()
+        if group is None:
+            pred_mean = preds.mean()
+            mse = torch.mean(torch.square(preds - torch.nan_to_num(targets)))
+        else:
+            n = preds.numel() * distributed.world_size(group)
+            sums = distributed.all_reduce_sum(torch.stack([
+                preds.sum(),
+                torch.square(preds - torch.nan_to_num(targets)).sum()]),
+                group)
+            pred_mean, mse = sums[0] / n, sums[1] / n
         return {
             "loss": loss.detach(), "grad_norm": gnorm.detach(),
-            "pred_mean": preds.mean(),
-            "rmse": torch.sqrt(torch.mean(torch.square(
-                preds - torch.nan_to_num(targets)))),
+            "pred_mean": pred_mean, "rmse": torch.sqrt(mse),
         }
 
     return step
