@@ -14,7 +14,8 @@ MaxViT layer's block and grid attention in one launch), the repros of R1's
 variants R4, R10, R9, R11 and R3, the repros of the out-projection
 family R12-R13, R2 and R8, and the head-pack repros R5 and R6, and last
 the inference entry points (serving, re-analysis generation and station
-evaluation) at the shipped configuration.  Phases:
+evaluation) at the shipped configuration, data parallelism, and the class
+head and int8 PTQ of the resnet convs.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -96,7 +97,24 @@ evaluation) at the shipped configuration.  Phases:
    one process on the same card: the log and the loss within 1e-3
    relative, the two ranks' trained states bit-equal, each rank's K1, K3,
    K3-w and dropout-hash launches as expected.  Each sub-phase prints its
-   seconds.
+   seconds;
+15. the class head and int8, at the shipped 12-hour configuration: (a)
+   with the class, PM10 and regional heads in f32, one sample's class
+   outputs on the GPU against the CPU (logits and regional predictions
+   within 1e-3 of their max, losses within 1e-4 relative), one training
+   loss and backward at batch 2 with dropout 0.1 (K1, K3 and the hash;
+   a finite loss, a non-zero regional gradient; its ms), and with
+   ``ignore_backbone`` no backbone gradient from the regional losses; (b)
+   the ``--fast`` configuration (bf16, fused stem, NHWC input) with
+   ``int8_convs`` at batch 25: calibrated on one synthetic batch, the
+   sidecars still int8 and f32 after the bf16 cast, each of the seven
+   int8 convs bit-equal to its plain version (int32 accumulator and
+   output), the int8 forward through K1 and seven int8 convs, its fields'
+   RMSE and max|d| from the bf16 forward (and both from the f32 one), both
+   forwards' ms, and one int8 conv at (300, 128, 84, 70) against cuDNN's
+   bf16 conv beside both bounds.  The int8 conv is a stock route
+   (im2col + ``torch._int_mm``), so it is reported on a line of its own,
+   not in the kernel report.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -1938,6 +1956,287 @@ def headpack_vs_plain(dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the class head and int8 PTQ
+# ---------------------------------------------------------------------------
+
+
+def class_head_config(**over):
+    """The shipped 12-hour configuration with the class head, the PM10
+    head and the regional heads."""
+    import dataclasses
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
+
+    mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
+    return dataclasses.replace(
+        shipped_12hr_model_config(pm25_mean=mean, pm25_std=std),
+        pm25_class_head=True, pm10=True, direct_regional=True, **over)
+
+
+def class_head_batch(batch: int, seed: int):
+    """x, timestamps, class labels (with NaN cells) and regional targets
+    (with a NaN) for ``batch`` samples, as CPU tensors."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = (rng.random((batch, 25, 24, 82, 67)) * 50).astype(np.float32)
+    ts = np.stack([np.full((batch, 25), 2023.0), np.ones((batch, 25)),
+                   np.full((batch, 25), 15.0),
+                   np.tile(np.arange(25) % 24, (batch, 1))],
+                  axis=-1).astype(np.float32)
+    labels = (rng.random((batch * 12, 82, 67)) * 90).astype(np.float32)
+    labels[0, :3] = np.nan
+    regions = (rng.random((batch * 12, 19)) * 40).astype(np.float32)
+    regions[0, 5] = np.nan
+    return tuple(torch.from_numpy(a) for a in (x, ts, labels, regions))
+
+
+def class_targets(labels, regions):
+    return dict(labels_pm25=labels, region_targets_pm25=regions,
+                labels_pm10=labels, region_targets_pm10=regions)
+
+
+def class_head_path(dev, card: str):
+    """Phase 15a: the class outputs of the 12-hour model with the class,
+    PM10 and regional heads in f32, one sample on the GPU against the CPU;
+    then one training-mode loss and backward at batch 2 with dropout 0.1
+    (K1, K3 and the dropout hash, f32), and with ``ignore_backbone`` the
+    regional losses' gradient on the backbone.  Returns the step's launch
+    counts."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.repros.common import cuda_ms
+
+    # f32 products in f32: the --fast CLIs of earlier phases turn TF32 on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = class_head_config()
+    layers = sum(cfg.depth_tuple)
+    x, ts, labels, regions = class_head_batch(1, SEED + 5)
+    with torch.inference_mode():
+        ref = seeded_model(cfg, SEED).class_outputs(
+            x, ts, **class_targets(labels, regions))
+        model = seeded_model(cfg, SEED).to(dev)
+        cuda_attn.reset_launches()
+        out = model.class_outputs(x.to(dev), ts.to(dev), **class_targets(
+            labels.to(dev), regions.to(dev)))
+        torch.cuda.synchronize()
+        launched = cuda_attn.launches
+    if launched != 2 * layers:
+        raise AssertionError(f"{launched} K1 launches in one class forward")
+    if set(out) != set(ref):
+        raise AssertionError(f"keys {sorted(out)} vs {sorted(ref)}")
+    worst = {}
+    for k in ("logits_pm25", "logits_pm10", "region_preds_pm25",
+              "region_preds_pm10"):
+        r, o = ref[k], out[k].cpu()
+        worst[k] = ((o - r).abs().max() / r.abs().max()).item()
+    loss_rel = {k: abs(float(out[k]) - float(ref[k])) / abs(float(ref[k]))
+                for k in ref if "loss" in k}
+    print(f"class outputs, 12hr f32, 1 sample, GPU vs CPU: max|d|/max "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} } (tol 1e-3); "
+          f"losses rel {max(loss_rel.values()):.2e} (tol 1e-4); loss "
+          f"{float(out['loss']):.4f}; K1 launches {launched}", flush=True)
+    if not (max(worst.values()) <= 1e-3 and max(loss_rel.values()) <= 1e-4):
+        raise AssertionError("GPU and CPU class outputs differ")
+
+    # training mode: batch 2, dropout 0.1, f32
+    x, ts, labels, regions = (t.to(dev) for t in class_head_batch(
+        2, SEED + 6))
+    model = seeded_model(class_head_config(dropout=DROPOUT), SEED).to(dev)
+    model.train()
+    gen = torch.Generator().manual_seed(SEED)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = model.class_outputs(x, ts, generator=gen, bn_stats=[],
+                                   **class_targets(labels, regions))["loss"]
+        loss.backward()
+        return loss
+
+    cuda_attn.reset_launches()
+    loss = step()
+    torch.cuda.synchronize()
+    counts = {"window_attention_fwd": cuda_attn.launches,
+              "window_attention_bwd": cuda_attn.bwd_launches,
+              "window_attention_wgrad": cuda_attn.wgrad_launches,
+              "dropout_keep_mask": cuda_attn.hash_launches}
+    want = (2 * layers, 2 * layers, 0, 4 * layers)
+    if tuple(counts.values()) != want:
+        raise AssertionError(f"class-head step launches {counts}, expected "
+                             f"{want}")
+    fc = model.regr_regional_pm25[2].weight.grad
+    if not (torch.isfinite(loss).item() and fc.abs().max().item() > 0):
+        raise AssertionError(f"loss {loss.item()}, regional fc grad "
+                             f"{fc.abs().max().item()}")
+    ms = cuda_ms(step, iters=3, warmup=1)
+    print(f"class-head training step, batch 2, dropout {DROPOUT}, f32: loss "
+          f"{loss.item():.4f}; launches {counts}; {ms:.1f} ms a step (CUDA "
+          f"events, warm); card: {card}", flush=True)
+
+    # ignore_backbone: the regional losses leave the backbone alone
+    model = seeded_model(class_head_config(dropout=DROPOUT,
+                                           ignore_backbone=True),
+                         SEED).to(dev).train()
+    out = model.class_outputs(x, ts, generator=gen, bn_stats=[],
+                              **class_targets(labels, regions))
+    backbone = [p for n, p in model.named_parameters()
+                if not n.startswith(("classifier_", "regr_regional_"))]
+    regr = out["regr_loss_pm25"] + out["regr_loss_pm10"]
+    grads = torch.autograd.grad(regr, backbone, allow_unused=True)
+    if any(g is not None and g.any().item() for g in grads):
+        raise AssertionError("ignore_backbone: the regional losses reach "
+                             "the backbone")
+    print("ignore_backbone: the regional losses give the backbone no "
+          "gradient", flush=True)
+    return counts
+
+
+def int8_path(dev, card: str):
+    """Phase 15b: int8 PTQ of the --fast configuration (bf16, fused stem,
+    NHWC input) at batch 25: calibrate on one synthetic batch, each of the
+    seven int8 convs against its plain version, the int8 forward against
+    the bf16 forward, both forwards' times, one int8 conv against cuDNN's
+    bf16 conv at (300, 128, 84, 70).  Returns the int8 forward's K1 and
+    int8-conv launches."""
+    import dataclasses
+
+    import torch
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.ops import quantize as Q
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.repros.common import bound_ms, cuda_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 yardstick
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(shipped_12hr_model_config(22.5, 15.5),
+                              compute_dtype="bfloat16", fuse_lead_stem=True,
+                              nhwc_input=True, int8_convs=True)
+    layers = sum(cfg.depth_tuple)
+    rng = np.random.default_rng(SEED + 7)
+    xp = np.zeros((FLAGSHIP_BATCH, 84, 70, 600), np.float32)
+    xp[:, 1:83, 1:68] = rng.random((FLAGSHIP_BATCH, 82, 67, 600)) * 50
+    x = torch.from_numpy(xp).to(dev, torch.bfloat16)
+    ts = torch.from_numpy(np.stack(
+        [np.full((FLAGSHIP_BATCH, 25), 2023.0), np.ones((FLAGSHIP_BATCH, 25)),
+         np.full((FLAGSHIP_BATCH, 25), 15.0),
+         np.tile(np.arange(25) % 24, (FLAGSHIP_BATCH, 1))],
+        axis=-1).astype(np.float32)).to(dev)
+
+    model = seeded_model(cfg, SEED).to(dev)
+    t0 = time.perf_counter()
+    Q.quantize_metnet3_int8(model, [(x, ts)])
+    calib_s = time.perf_counter() - t0
+    model.to(torch.bfloat16)
+    blocks = {f"{stage}.{i}.{name}": getattr(blk, name)
+              for stage in ("resnet1", "resnet2")
+              for i, blk in enumerate(getattr(model, stage).blocks)
+              for name in ("block1", "block2")
+              if getattr(blk, name).proj_q is not None}
+    if len(blocks) != 7:
+        raise AssertionError(f"quantized sites {sorted(blocks)}")
+    for site, block in blocks.items():
+        q = block.proj_q
+        if (q.wq.dtype, q.sw.dtype, q.sx.dtype, q.b.dtype) != (
+                torch.int8, torch.float32, torch.float32, torch.float32):
+            raise AssertionError(f"{site}: the bf16 cast reached the sidecar")
+    float_cfg = dataclasses.replace(cfg, int8_convs=False)
+    float_model = seeded_model(float_cfg, SEED).to(dev, torch.bfloat16)
+
+    inputs = {}
+    hooks = [b.register_forward_pre_hook(
+        lambda mod, args, site=site: inputs.setdefault(site, args[0]))
+        for site, b in blocks.items()]
+    with torch.inference_mode():
+        Q.reset_launches()
+        cuda_attn.reset_launches()
+        y_int8 = model(x, ts)
+        torch.cuda.synchronize()
+        launches = (cuda_attn.launches, Q.launches)
+        for h in hooks:
+            h.remove()
+        y_bf16 = float_model(x, ts)
+        # the yardstick: the same weights in f32 on the same input
+        y_f32 = seeded_model(float_cfg, SEED).to(dev)(x.float(), ts)
+        if launches != (2 * layers, 7):
+            raise AssertionError(f"int8 forward launches (K1, int8 conv) "
+                                 f"{launches}, expected ({2 * layers}, 7)")
+        if set(inputs) != set(blocks):
+            raise AssertionError(f"int8 conv inputs seen at {sorted(inputs)}")
+        for site, block in blocks.items():
+            q, xin = block.proj_q, inputs[site]
+            xq = Q.quantize_input(xin, q.sx)
+            acc = Q.int8_conv_accumulate(xq, q.wq)
+            plain = Q.int8_conv_accumulate_plain(xq, q.wq)
+            out = Q.conv2d_int8(q, xin)
+            if not (torch.equal(acc, plain) and torch.equal(
+                    out, Q.dequantize(plain, q, xin.dtype))):
+                raise AssertionError(f"{site}: the int8 conv differs from "
+                                     "its plain version")
+        shape = tuple(next(iter(inputs.values())).shape)
+        print(f"the seven int8 convs {shape} on the card: "
+              f"int32 accumulator and output bit-equal to the plain version "
+              f"(float64 conv); calibration {calib_s:.1f} s", flush=True)
+        d = (y_int8.double() - y_bf16.double())
+        rmse = d.square().mean().sqrt().item()
+        worst = d.abs().max().item()
+        f32_rmse = {k: (y.double() - y_f32.double()).square().mean().sqrt()
+                    .item() for k, y in (("int8", y_int8), ("bf16", y_bf16))}
+        if not (torch.isfinite(y_int8).all().item()
+                and tuple(y_int8.shape) == (FLAGSHIP_BATCH, 12, 82, 67)):
+            raise AssertionError("the int8 forward is not finite or of the "
+                                 "expected shape")
+        ms_int8 = cuda_ms(lambda: model(x, ts), iters=5)
+        ms_bf16 = cuda_ms(lambda: float_model(x, ts), iters=5)
+        ms_int8_again = cuda_ms(lambda: model(x, ts), iters=5)
+    print(f"int8 vs bf16 forward, B={FLAGSHIP_BATCH}: int8_rmse_delta "
+          f"{rmse:.4f} ug/m3, max|d| {worst:.3f} (RMSE from the f32 "
+          f"forward: int8 {f32_rmse['int8']:.4f}, bf16 "
+          f"{f32_rmse['bf16']:.4f}); forward {ms_int8:.1f} / "
+          f"{ms_int8_again:.1f} ms int8, {ms_bf16:.1f} ms bf16 (CUDA events,"
+          f" warm); K1 launches {launches[0]}, int8 convs {launches[1]}; "
+          f"card: {card}", flush=True)
+
+    # one conv at the flagship resnet shape: int8 (stock route) vs cuDNN bf16
+    n, c, h, w = FLAGSHIP_BATCH * 12, 128, 84, 70
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xc = torch.randn(n, c, h, w, device=dev, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    torch.manual_seed(SEED)
+    conv = torch.nn.Conv2d(c, c, 3, padding=1).to(dev)
+    q = Q.quantize_conv(conv.weight, conv.bias, xc.abs().max().item())
+    wb, bb = conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16)
+    with torch.inference_mode():
+        xq = Q.quantize_input(xc, q.sx)
+        t = {"int8": cuda_ms(lambda: Q.conv2d_int8(q, xc), iters=5),
+             "int8 accumulate": cuda_ms(
+                 lambda: Q.int8_conv_accumulate(xq, q.wq), iters=5),
+             "cudnn bf16": cuda_ms(lambda: torch.nn.functional.conv2d(
+                 xc, wb, bb, padding=1), iters=5),
+             "plain": cuda_ms(lambda: Q.int8_conv_accumulate_plain(
+                 xq, q.wq), iters=2, warmup=1)}
+        t["int8 again"] = cuda_ms(lambda: Q.conv2d_int8(q, xc), iters=5)
+    ops = 2.0 * n * h * w * c * c * 9
+    moved = 2.0 * n * h * w * c * 2
+    b_bf16 = bound_ms(ops, moved, torch.bfloat16)
+    b_int8 = bound_ms(ops, moved, torch.int8)
+    print(f"one 3x3 conv {(n, c, h, w)}: int8 (quantize, im2col + "
+          f"torch._int_mm, dequantize) {t['int8']:.3f} / "
+          f"{t['int8 again']:.3f} ms (its int32 accumulate alone "
+          f"{t['int8 accumulate']:.3f}), bound {b_int8[0]:.3f} ms "
+          f"({b_int8[1]}); cuDNN bf16 {t['cudnn bf16']:.3f} ms, bound "
+          f"{b_bf16[0]:.3f} ms ({b_bf16[1]}); the plain float64 conv "
+          f"{t['plain']:.1f} ms; {ops / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB "
+          f"of bf16 in and out; card: {card}", flush=True)
+    return launches
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection) at the bf16
@@ -2150,6 +2449,16 @@ def run(root: str) -> int:
     dp_eval_launches, dp_train_counts = ranks_on_one_card(tree, root, card)
     print(f"phase 14b: {time.perf_counter() - t14:.1f} s", flush=True)
 
+    phase("15a", "the class head: class outputs and a training step")
+    t15 = time.perf_counter()
+    class_counts = class_head_path(dev, card)
+    print(f"phase 15a: {time.perf_counter() - t15:.1f} s", flush=True)
+
+    phase("15b", "int8 PTQ of the resnet convs at the --fast configuration")
+    t15 = time.perf_counter()
+    int8_launches = int8_path(dev, card)
+    print(f"phase 15b: {time.perf_counter() - t15:.1f} s", flush=True)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
         "bfloat16"]
@@ -2172,7 +2481,9 @@ def run(root: str) -> int:
           f"station evaluation {station_launches}; data parallel, rank 0 of "
           f"2: evaluation {dp_eval_launches}, train step "
           f"{dp_train_counts[0]} (window_attention_bwd "
-          f"{dp_train_counts[1]})", flush=True)
+          f"{dp_train_counts[1]}); class-head step {class_counts}; int8 "
+          f"forward {int8_launches[0]} (int8 convs {int8_launches[1]})",
+          flush=True)
     train_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2)
     print(f"window_attention_fwd, bf16: Bw 9,000 {k_ms:.3f} ms (bound "
           f"{fwd_bound[0]:.3f}); Bw 1,440 rate {DROPOUT} "

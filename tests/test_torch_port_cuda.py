@@ -6,7 +6,7 @@ keep mask, the fused MBConv, the per-head attention of R1/R14
 kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
 core, and R11 whole) and R3 (cross-head indicator norm), the
 out-projection kernel of R12, R13, R2 and R8, and the head-pack kernel of
-R5 and R6.  Skips without a CUDA device.
+R5 and R6, and the int8 conv's card route.  Skips without a CUDA device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -704,3 +704,27 @@ def test_headpack_attention_rejects_what_it_cannot_run():
                  lambda: headpack(x, wout, windows_per_cta=0)):
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.parametrize("n,c,h,w,o", [
+    (300, 128, 84, 70, 128), (3, 5, 6, 5, 3), (1, 16, 2, 3, 8)])
+def test_int8_conv_matches_plain(n, c, h, w, o):
+    """The int8 conv's card route (im2col + ``torch._int_mm``) against the
+    plain float64 conv: the int32 accumulator and the dequantized output
+    bit-equal; one count a conv."""
+    from vit_grid_model_tpu_torch.ops import quantize as Q
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(n + c)
+    x = torch.randn(n, c, h, w, device="cuda", generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(o, c, 3, 3, device="cuda", generator=g)
+    q = Q.quantize_conv(weight, torch.randn(o, device="cuda", generator=g),
+                        0.8 * x.abs().max().item())
+    xq = Q.quantize_input(x, q.sx)
+    before = Q.launches
+    acc = Q.int8_conv_accumulate(xq, q.wq)
+    assert Q.launches == before + 1
+    plain = Q.int8_conv_accumulate_plain(xq, q.wq)
+    assert acc.dtype == torch.int32 and torch.equal(acc, plain)
+    assert torch.equal(Q.conv2d_int8(q, x), Q.dequantize(plain, q, x.dtype))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 ``vit_grid_model_tpu_torch`` (among them the inference entry points:
 serving, generation and station evaluation with their CLIs) and
-``chip_smoke.py`` in a fresh interpreter
+``chip_smoke.py`` in a fresh interpreter (the int8 convs of
+``ops/quantize.py`` and the class heads among them)
 loads no ``jax``, no Triton, nothing of the JAX package
 (``vit_grid_model_tpu``) and nothing of ``benchmarks``, and builds no
 kernel."""
@@ -19,13 +20,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')
 assert len(names) >= 64, names
 new = {'vit_grid_model_tpu_torch.' + m for m in (
     'evaluation.serving', 'evaluation.generate', 'evaluation.station_eval',
-    'cli.generate_reanalysis', 'cli.station_eval', 'parallel.mesh')}
+    'cli.generate_reanalysis', 'cli.station_eval', 'parallel.mesh',
+    'models.classification', 'ops.quantize')}
 assert new <= set(names), new - set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 from vit_grid_model_tpu_torch.ops.cuda import (attention, attention_variants,
                                                library, mbconv)
+from vit_grid_model_tpu_torch.ops import quantize
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vit_grid_model_tpu',
                               'benchmarks')]
@@ -40,6 +43,7 @@ from vit_grid_model_tpu_torch.evaluation.serving import Forecaster
 from vit_grid_model_tpu_torch.parallel.mesh import pad_to_multiple
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
 assert attention.wgrad_launches == 0
+assert quantize.launches == 0
 assert attention_variants.layer_launches == 0
 assert (attention_variants.headmajor_launches
         == attention_variants.stacked_launches

@@ -7,7 +7,10 @@ state file holds the model's state_dict, the AdamW moments and step counts,
 the schedule step, the dropout generator's state and the EMA.  A ``.pkt``
 is a plain state_dict with the keys of ``core/torch_export.py``, which the
 port loads with ``core/weights.py::load_reference_checkpoint`` and the JAX
-evaluation CLI through ``core/torch_import``.
+evaluation CLI through ``core/torch_import``.  A quantized model's
+``.pkt`` also holds its int8 sidecars (``*.proj_q.*``, ``ops/quantize.py``),
+which ``load_reference_checkpoint`` gives the model it builds at the same
+sites before its strict load.
 
 Data parallel (a process ``group``): only rank 0 writes, and every rank
 waits at a barrier until the file is there; a restore loads the file on

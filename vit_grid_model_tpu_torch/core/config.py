@@ -4,8 +4,8 @@ The port's own copy of ``vit_grid_model_tpu/core/config.py``: the same
 classes with the same fields, defaults and validation, so that a config
 built for one package describes the same model in the other
 (``tests/test_torch_port_host.py`` holds them equal).  The execution knobs
-of the JAX package (the Pallas flags, the shard axis, int8) are kept as
-fields; the port's ``MetNet3`` refuses those it does not implement.
+of the JAX package (the Pallas flags, the shard axis) are kept as fields,
+which the port's GPU path, running its own kernels, does not read.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ class MetNet3Config:
     # input arrives host-prepared as (B, Hp, Wp, T*C), zero-padded to
     # pad_multiple, PM channels still raw
     nhwc_input: bool = False
-    # inference only: int8 resnet convs (not ported)
+    # inference only: int8 resnet convs (``ops/quantize.py``)
     int8_convs: bool = False
 
     def __post_init__(self):

@@ -1,10 +1,21 @@
 """Weights for the port's ``MetNet3``: from a JAX parameter pytree, from a
 reference ``.pkt`` checkpoint, or from a numpy seed.
 
-The module tree uses exactly the state_dict keys of
+The module tree uses the state_dict keys of
 ``core/export.py::export_metnet3_state_dict`` (the port's copy of the JAX
-package's exporter), so each source loads with
-``load_state_dict(strict=True)`` and no converter.
+package's exporter, which also emits the class heads ``classifier_pm25``
+with ``len(boundaries) + 1`` outputs, ``classifier_pm10`` and both
+boundary buffers), so each source loads with
+``load_state_dict(strict=True)`` and no converter.  The exporter leaves
+out two things, which ``state_dict_from_jax`` adds here:
+
+* the regional heads ``regr_regional_{pm25,pm10}``, an ``nn.Sequential``
+  of Conv1x1 (``.0``), Flatten and Linear(H * W, 19) (``.2``);
+* the int8 sidecars ``*.proj_q.{wq, sw, sx, b}`` of a quantized pytree
+  (``ops/quantize.py``): ``wq`` OIHW int8, the rest f32.
+
+A state_dict with sidecars loads into a model given empty sidecars at the
+same sites first (``_load``).
 """
 
 from __future__ import annotations
@@ -16,18 +27,51 @@ from torch import nn
 from vit_grid_model_tpu_torch.core.config import MetNet3Config
 from vit_grid_model_tpu_torch.core.export import export_metnet3_state_dict
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
+from vit_grid_model_tpu_torch.ops import quantize
 
 
 def _load(cfg: MetNet3Config, state_dict) -> MetNet3:
-    model = MetNet3(cfg)
+    model = quantize.add_sidecars_of(MetNet3(cfg), state_dict)
     model.load_state_dict(state_dict, strict=True)
     return model.eval()
 
 
-def params_from_jax(params, cfg: MetNet3Config) -> MetNet3:
-    """A ``metnet3_init``-shaped pytree (arrays of any kind numpy can read)
-    -> the port's model in f32 on the CPU, in eval mode."""
+def _hwio_to_oihw(w, dtype=np.float32) -> np.ndarray:
+    return np.transpose(np.asarray(w), (3, 2, 0, 1)).astype(dtype)
+
+
+def state_dict_from_jax(params, cfg: MetNet3Config):
+    """A ``metnet3_init``-shaped pytree, quantized or not -> the port's
+    state_dict as numpy arrays: the exporter's entries, the regional
+    heads and the int8 sidecars."""
     sd = export_metnet3_state_dict(params, cfg)
+    for suffix in ("pm25", "pm10"):
+        head = params.get(f"regr_regional_{suffix}")
+        if head is not None:
+            prefix = f"regr_regional_{suffix}"
+            sd[f"{prefix}.0.weight"] = _hwio_to_oihw(head["conv"]["w"])
+            sd[f"{prefix}.0.bias"] = np.array(head["conv"]["b"], np.float32)
+            sd[f"{prefix}.2.weight"] = np.ascontiguousarray(
+                np.asarray(head["fc"]["w"], np.float32).T)
+            sd[f"{prefix}.2.bias"] = np.array(head["fc"]["b"], np.float32)
+    for stage in ("resnet1", "resnet2"):
+        for i, blk in enumerate(params[stage]["blocks"]):
+            for name in ("block1", "block2"):
+                q = blk[name].get("proj_q")
+                if q is None:
+                    continue
+                prefix = f"{stage}.blocks.{i}.{name}.proj_q"
+                sd[f"{prefix}.wq"] = _hwio_to_oihw(q["wq"], np.int8)
+                for leaf in ("sw", "sx", "b"):
+                    sd[f"{prefix}.{leaf}"] = np.array(q[leaf], np.float32)
+    return sd
+
+
+def params_from_jax(params, cfg: MetNet3Config) -> MetNet3:
+    """A ``metnet3_init``-shaped pytree (arrays of any kind numpy can read),
+    with or without int8 sidecars -> the port's model in f32 on the CPU,
+    in eval mode."""
+    sd = state_dict_from_jax(params, cfg)
     return _load(cfg, {k: torch.from_numpy(np.ascontiguousarray(v))
                        for k, v in sd.items()})
 
@@ -51,13 +95,16 @@ def seed_module(model: nn.Module, seed: int) -> nn.Module:
     """``model`` with every parameter and BatchNorm statistic drawn from
     ``np.random.default_rng(seed)``, in state_dict order: torch-default
     fan-in uniform weights, standard-normal embeddings and registers, norm
-    gains near 1, and running variances in [0.5, 1.5].  In eval mode."""
+    gains near 1, and running variances in [0.5, 1.5].  The class
+    boundaries and any int8 sidecars are left as they are: quantize after
+    seeding.  In eval mode."""
     rng = np.random.default_rng(seed)
     sd = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
         leaf = name.rsplit(".", 1)[-1]
-        if name == "pm25_boundaries" or leaf == "num_batches_tracked":
+        if (name.endswith("_boundaries") or leaf == "num_batches_tracked"
+                or ".proj_q." in name):
             continue
         if leaf == "running_var":
             v = rng.uniform(0.5, 1.5, shape)

@@ -22,6 +22,9 @@ What takes the place of the JAX package's levers:
   allocator as the forward returns;
 * fast mode (bf16, the fused lead stem, and on CUDA the hand-written window
   attention) by default on the card.
+
+A quantized model (``ops/quantize.py``) keeps its int8 sidecars, int8
+weights with f32 scales and bias, through the copy and the bf16 cast.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from vit_grid_model_tpu_torch.data.bufferpool import POOL
 from vit_grid_model_tpu_torch.evaluation.driver import (resolve_device,
                                                         stage_input)
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3, pad_values
+from vit_grid_model_tpu_torch.ops import quantize
 
 
 class Forecaster:
@@ -64,8 +68,9 @@ class Forecaster:
                                       fuse_lead_stem=True)
         self.cfg = cfg
         self.batch_size = batch_size
-        hot = MetNet3(cfg)
-        hot.load_state_dict(model.state_dict(), strict=True)
+        state = model.state_dict()
+        hot = quantize.add_sidecars_of(MetNet3(cfg), state)
+        hot.load_state_dict(state, strict=True)
         self.model = hot.to(device=self.device,
                             dtype=getattr(torch, cfg.compute_dtype)).eval()
 

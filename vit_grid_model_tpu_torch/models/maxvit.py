@@ -81,9 +81,14 @@ class MaxViT(nn.Module):
 
     def forward(self, x: Tensor, cond: Tensor, *,
                 seeds: Optional[Sequence[int]] = None,
-                bn_stats: Optional[List] = None, group=None) -> Tensor:
+                bn_stats: Optional[List] = None, group=None,
+                stop_after: Optional[str] = None) -> Tensor:
         """x: (B, C, H, W) with H, W divisible by the window size;
         cond: (B, cond_dim).  Returns (B, C', H, W).
+
+        ``stop_after`` ("mbconv" | "block"): return the partial pipeline
+        after that sub-stage of the first layer, as ``maxvit_apply``'s
+        profiling hook does.
 
         Training: ``seeds`` holds two dropout seeds per layer, and turns
         attention dropout on at ``self.dropout``; a ``bn_stats`` list turns
@@ -96,6 +101,8 @@ class MaxViT(nn.Module):
             if seeds is not None:
                 block_seed, grid_seed = seeds[2 * li], seeds[2 * li + 1]
             x = conv(x, bn_stats, self.fold_bn_eval, group)
+            if stop_after == "mbconv":
+                return x
             b, d = x.shape[0], x.shape[1]
             x = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
 
@@ -105,6 +112,8 @@ class MaxViT(nn.Module):
             r = registers.expand(xw.shape[0], nr, d)
             xw, r = self._attend(block_attn, xw, r, cond, nwin, block_seed)
             x = W.block_reverse(xw, w, dims)
+            if stop_after == "block":
+                return x.permute(0, 3, 1, 2)
 
             # grid (strided-window) attention; registers averaged over the
             # sample's windows, then repeated sample-major

@@ -1,8 +1,10 @@
 """MetNet3: pad -> resnet -> downsample -> MaxViT -> upsample -> resnet ->
 1x1 head, with the per-lead batch expansion and FiLM conditioning.
 
-Counterpart of ``vit_grid_model_tpu/models/metnet3.py::metnet3_apply``
-(the PM2.5 regression head).  The compute dtype is the parameters' dtype:
+Counterpart of ``vit_grid_model_tpu/models/metnet3.py``: ``forward`` is
+``metnet3_apply``, ``class_outputs`` is ``metnet3_class_outputs`` and
+``get_ignore_keys_for_eval`` its namesake.  The compute dtype is the
+parameters' dtype:
 ``model.to(torch.bfloat16)`` is the bf16 throughput mode, whose head output
 is cast back to f32 before de-standardization (training runs bf16 over f32
 master weights through ``train/trainer.py::model_forward``).  In training
@@ -32,11 +34,31 @@ the ranks together compute what one process computes on the global batch.
 stem and the host-prepared (B, Hp, Wp, T*C) input, and ``cfg.fold_bn_eval``
 the MBConv with its batch-norms folded (inference only), as in the JAX
 package.
+
+Heads (state_dict keys of ``core/export.py`` unless noted):
+
+* ``classifier_pm25``, under ``cfg.pm25``: a 1x1 conv with one output, or
+  ``len(pm25_boundaries) + 1`` class logits under ``cfg.pm25_class_head``
+  (the regression forward then returns class 0's logit de-standardized,
+  as ``metnet3_apply`` does), with its ``pm25_boundaries`` buffer;
+* ``classifier_pm10`` and ``pm10_boundaries``, under ``cfg.pm10``;
+* ``regr_regional_pm25`` / ``_pm10``, under ``cfg.direct_regional``:
+  ``nn.Sequential(Conv2d(ch, 1, 1), Flatten(), Linear(H * W, 19))``, keys
+  ``.0.*`` and ``.2.*`` (the names the reference's own ``nn.Sequential``
+  would give; ``core/weights.py`` carries them from a JAX pytree).
+  (BL, 1, H, W) flattens in the (H, W) row-major order of JAX's
+  (BL, H, W, 1).
+
+int8 (``cfg.int8_convs``, eval only): a resnet ``Block`` with an int8
+sidecar ``proj_q`` (``ops/quantize.py``, keys ``*.proj_q.{wq, sw, sx,
+b}``, attached by ``quantize_metnet3_int8``) runs its 3x3 conv in int8,
+the fused stem's ``block2`` included; without a sidecar, or with the flag
+off, the float conv.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -45,8 +67,12 @@ from torch.utils.checkpoint import checkpoint
 
 from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import MetNet3Config
+from vit_grid_model_tpu_torch.models.classification import (
+    categorical_to_continuous)
 from vit_grid_model_tpu_torch.models.maxvit import MaxViT
 from vit_grid_model_tpu_torch.ops import nn as vnn
+from vit_grid_model_tpu_torch.ops import quantize as Q
+from vit_grid_model_tpu_torch.train import losses as L
 
 # ---------------------------------------------------------------------------
 # conditionable resnet blocks
@@ -54,16 +80,28 @@ from vit_grid_model_tpu_torch.ops import nn as vnn
 
 
 class Block(nn.Module):
-    """3x3 conv -> ChanLayerNorm -> optional (scale + 1, shift) -> ReLU."""
+    """3x3 conv -> ChanLayerNorm -> optional (scale + 1, shift) -> ReLU.
+    ``proj_q``: the conv's int8 sidecar (``ops/quantize.py``), or None."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = nn.Conv2d(dim_in, dim_out, 3, padding=1)
         self.norm = vnn.ChanLayerNorm(dim_out)
+        self.proj_q: Optional[Q.Int8Conv] = None
 
     def forward(self, x: Tensor,
-                scale_shift: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
-        x = vnn.conv2d(x, self.proj.weight, self.proj.bias, padding=1)
+                scale_shift: Optional[Tuple[Tensor, Tensor]] = None, *,
+                int8: bool = False,
+                collect_amax: Optional[Dict[str, Tensor]] = None,
+                site: Optional[str] = None) -> Tensor:
+        """``int8``: take the int8 sidecar where there is one;
+        ``collect_amax``: record max-|x| under ``site`` (calibration)."""
+        if collect_amax is not None and site is not None:
+            Q.record_amax(collect_amax, site, x)
+        if int8 and self.proj_q is not None:
+            x = Q.conv2d_int8(self.proj_q, x)
+        else:
+            x = vnn.conv2d(x, self.proj.weight, self.proj.bias, padding=1)
         return _norm_act(self.norm, x, scale_shift)
 
 
@@ -94,9 +132,16 @@ class ResnetBlock(nn.Module):
         scale, shift = c.chunk(2, dim=-1)
         return scale[:, :, None, None], shift[:, :, None, None]
 
-    def forward(self, x: Tensor, cond: Optional[Tensor] = None) -> Tensor:
-        h = self.block1(x, self.scale_shift(cond))
-        h = self.block2(h)
+    def forward(self, x: Tensor, cond: Optional[Tensor] = None, *,
+                int8: bool = False,
+                collect_amax: Optional[Dict[str, Tensor]] = None,
+                site: Optional[str] = None) -> Tensor:
+        def kw(block):
+            return dict(int8=int8, collect_amax=collect_amax,
+                        site=f"{site}.{block}" if site else None)
+
+        h = self.block1(x, self.scale_shift(cond), **kw("block1"))
+        h = self.block2(h, **kw("block2"))
         res = (vnn.conv2d(x, self.res_conv.weight, self.res_conv.bias)
                if self.res_conv is not None else x)
         return h + res
@@ -110,9 +155,15 @@ class ResnetBlocks(nn.Module):
             ResnetBlock(dim_in if i == 0 else dim_out, dim_out, cond_dim)
             for i in range(depth))
 
-    def forward(self, x: Tensor, cond: Optional[Tensor] = None) -> Tensor:
-        for block in self.blocks:
-            x = block(x, cond)
+    def forward(self, x: Tensor, cond: Optional[Tensor] = None, *,
+                int8: bool = False,
+                collect_amax: Optional[Dict[str, Tensor]] = None,
+                site: Optional[str] = None) -> Tensor:
+        """``site``: the stage's name ("resnet1"), from which block i's
+        convs are named "resnet1.i.block1" and "resnet1.i.block2"."""
+        for i, block in enumerate(self.blocks):
+            x = block(x, cond, int8=int8, collect_amax=collect_amax,
+                      site=f"{site}.{i}" if site else None)
         return x
 
 
@@ -197,15 +248,11 @@ def rank_seed(seed: int, rank: int) -> int:
 
 class MetNet3(nn.Module):
     """State_dict keys are those of
-    ``core/torch_export.py::export_metnet3_state_dict``."""
+    ``core/torch_export.py::export_metnet3_state_dict``, plus the regional
+    heads and the int8 sidecars (see the module docstring)."""
 
     def __init__(self, cfg: MetNet3Config):
         super().__init__()
-        unsupported = [name for name in ("pm10", "direct_regional",
-                                          "pm25_class_head", "int8_convs")
-                       if getattr(cfg, name)]
-        if unsupported or not cfg.pm25:
-            raise ValueError(f"MetNet3: not ported: {unsupported or ['pm25']}")
         self.cfg = cfg
         ch = cfg.n_start_channels
         emb = cfg.model_time_emb_dim
@@ -230,9 +277,29 @@ class MetNet3(nn.Module):
         self.up = nn.ConvTranspose2d(ch, ch, 2, stride=2)
         self.resnet2 = ResnetBlocks(ch, ch, cfg.resnet_block_depth,
                                     cfg.lead_time_emb_dim)
-        self.classifier_pm25 = nn.Conv2d(ch, 1, 1)
-        self.register_buffer("pm25_boundaries",
-                             torch.tensor(cfg.pm25_boundaries))
+        # the regression head, or with pm25_class_head the class logits
+        if cfg.pm25:
+            n_out = (len(cfg.pm25_boundaries) + 1 if cfg.pm25_class_head
+                     else 1)
+            self.classifier_pm25 = nn.Conv2d(ch, n_out, 1)
+            self.register_buffer("pm25_boundaries",
+                                 torch.tensor(cfg.pm25_boundaries))
+            if cfg.direct_regional:
+                self.regr_regional_pm25 = self._regional_head(ch)
+        if cfg.pm10:
+            self.classifier_pm10 = nn.Conv2d(
+                ch, len(cfg.pm10_boundaries) + 1, 1)
+            self.register_buffer("pm10_boundaries",
+                                 torch.tensor(cfg.pm10_boundaries))
+            if cfg.direct_regional:
+                self.regr_regional_pm10 = self._regional_head(ch)
+
+    def _regional_head(self, ch: int) -> nn.Sequential:
+        """Conv1x1 -> flatten (H, W) row-major -> Linear(H * W, 19)."""
+        cfg = self.cfg
+        return nn.Sequential(nn.Conv2d(ch, 1, 1), nn.Flatten(),
+                             nn.Linear(cfg.input_height * cfg.input_width,
+                                       19))
 
     def _condition_time(self, target_time: Tensor, bl: int) -> Tensor:
         """target_time: (B*L, 5) rows of (year, month, day, hour, lead).
@@ -246,7 +313,8 @@ class MetNet3(nn.Module):
         return torch.cat([lead_emb, scrambled], dim=-1)
 
     def _fused_lead_stem(self, x: Tensor, time_feats: Tensor, cond: Tensor,
-                         L: int) -> Tensor:
+                         L: int, int8: bool,
+                         collect_amax: Optional[Dict[str, Tensor]]) -> Tensor:
         """conv(concat(x, t)) == conv_x(x) + conv_t(t): the shared-channel
         conv runs once per sample, and the spatially constant time channels
         reduce to time_feats times the border-aware maps conv(ones)."""
@@ -264,7 +332,8 @@ class MetNet3(nn.Module):
                             padding=1).reshape(w.shape[0], n_time, hp, wp)
         y = y + torch.einsum("bj,ojhw->bohw", time_feats, k_maps)
         h = _norm_act(first.block1.norm, y, first.scale_shift(cond))
-        h = first.block2(h)
+        h = first.block2(h, int8=int8, collect_amax=collect_amax,
+                         site="resnet1.0.block2")
 
         res_w = first.res_conv.weight                       # (O, C_in, 1, 1)
         res = vnn.conv2d(x, res_w[:, :n_shared]).repeat_interleave(L, dim=0)
@@ -272,17 +341,31 @@ class MetNet3(nn.Module):
                                res_w[:, n_shared:, 0, 0])[:, :, None, None]
         res = res + first.res_conv.bias[:, None, None]
         out = h + res
-        for block in self.resnet1.blocks[1:]:
-            out = block(out, cond)
+        for i, block in enumerate(self.resnet1.blocks[1:], start=1):
+            out = block(out, cond, int8=int8, collect_amax=collect_amax,
+                        site=f"resnet1.{i}")
         return out
 
     def forward(self, x: Tensor, timestamps: Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 bn_stats: Optional[List] = None,
-                remat: bool = False, group=None) -> Tensor:
+                remat: bool = False, group=None,
+                return_features: bool = False,
+                stop_after: Optional[str] = None,
+                collect_amax: Optional[Dict[str, Tensor]] = None) -> Tensor:
         """x: (B, T, C, H, W), or (B, Hp, Wp, T*C) zero-padded with the PM
         channels raw when ``cfg.nhwc_input``; timestamps: (B, T', 4) raw
-        (year, month, day, hour) rows.  Returns (B, L, H, W) f32 fields.
+        (year, month, day, hour) rows.  Returns (B, L, H, W) f32 fields:
+        the regression head's, or with ``cfg.pm25_class_head`` class 0's
+        logit de-standardized, as ``metnet3_apply`` reads it.
+
+        ``return_features``: return the (B*L, ch, H, W) features the heads
+        read instead.  ``stop_after`` ("input" | "stem" | "vit_mbconv" |
+        "vit_block" | "vit" | "resnet2"): return the partial pipeline
+        through that stage, NCHW where JAX's is NHWC.  ``collect_amax``
+        (a dict): record each resnet ``Block`` conv's max-|input| by site
+        (calibration, ``ops/quantize.py``).  With ``cfg.int8_convs``, an
+        eval forward takes each ``Block``'s int8 sidecar where it has one.
 
         In training mode, ``bn_stats`` (a list) receives each MBConv
         batch-norm's updated running statistics as ``(bn, mean, var)``, and
@@ -297,6 +380,9 @@ class MetNet3(nn.Module):
         draws the same seeds from its generator and offsets them by
         ``rank_seed``."""
         cfg = self.cfg
+        if not (cfg.pm25 or return_features or stop_after):
+            raise ValueError("MetNet3 without pm25 has no regression head: "
+                             "ask for return_features or class_outputs")
         rank = distributed.rank(group)
         seeds = None
         if self.training:
@@ -350,17 +436,26 @@ class MetNet3(nn.Module):
 
         x = x.to(dtype)
         cond = cond.to(dtype)
+        if stop_after == "input":
+            return x
+        int8 = cfg.int8_convs and not self.training
         if cfg.fuse_lead_stem and time_feats is not None:
-            out = self._fused_lead_stem(x, time_feats.to(dtype), cond, L)
+            out = self._fused_lead_stem(x, time_feats.to(dtype), cond, L,
+                                        int8, collect_amax)
         else:
             x = x.repeat_interleave(L, dim=0)
             if time_feats is not None:
                 maps = time_feats[:, :, None, None].expand(-1, -1, hp, wp)
                 x = torch.cat([x, maps.to(x.dtype)], dim=1)
-            out = self.resnet1(x, cond)
+            out = self.resnet1(x, cond, int8=int8, collect_amax=collect_amax,
+                               site="resnet1")
         out = vnn.max_pool_2x(out)
+        if stop_after == "stem":
+            return out
+        vit_stop = {"vit_mbconv": "mbconv",
+                    "vit_block": "block"}.get(stop_after)
         if not self.training:
-            out = self.vit(out, cond)
+            out = self.vit(out, cond, stop_after=vit_stop)
         elif remat:
             bns = []
             # the recompute runs in the backward, after a functional_call
@@ -372,7 +467,7 @@ class MetNet3(nn.Module):
                 stats = []
                 y = functional_call(self.vit, vit_params, (h, c),
                                     dict(seeds=seeds, bn_stats=stats,
-                                         group=group))
+                                         group=group, stop_after=vit_stop))
                 bns[:] = [bn for bn, _, _ in stats]
                 return (y, *[t for _, m, v in stats for t in (m, v)])
 
@@ -380,10 +475,15 @@ class MetNet3(nn.Module):
             bn_stats.extend(zip(bns, flat[0::2], flat[1::2]))
         else:
             out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats,
-                           group=group)
+                           group=group, stop_after=vit_stop)
+        if stop_after in ("vit_mbconv", "vit_block", "vit"):
+            return out
         out = vnn.conv2d_transpose(out, self.up.weight, self.up.bias, stride=2)
-        out = self.resnet2(out, cond)
+        out = self.resnet2(out, cond, int8=int8, collect_amax=collect_amax,
+                           site="resnet2")
         out = unpad_hw(out, pv)
+        if stop_after == "resnet2" or return_features:
+            return out
 
         head = self.classifier_pm25
         preds = vnn.conv2d(out, head.weight, head.bias)
@@ -391,3 +491,76 @@ class MetNet3(nn.Module):
         if cfg.normalization_method == "Standard":
             preds = preds * cfg.pm25_std + cfg.pm25_mean
         return preds
+
+    def class_outputs(self, x: Tensor, timestamps: Tensor, *,
+                      labels_pm25: Optional[Tensor] = None,
+                      region_targets_pm25: Optional[Tensor] = None,
+                      labels_pm10: Optional[Tensor] = None,
+                      region_targets_pm10: Optional[Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      bn_stats: Optional[List] = None) -> dict:
+        """The class-head training contract, the counterpart of
+        ``metnet3_class_outputs``: per-cell class logits (B*L, n, H, W),
+        the bucketized cross-entropy against ``labels_*`` (B*L, H, W) with
+        NaN targets masked, midpoint-decoded ``predicted_*`` values, the
+        regional heads' (B*L, 19) ``region_preds_*`` and their MSE against
+        ``region_targets_*`` (they read detached features under
+        ``cfg.ignore_backbone``), and ``loss``, the sum of the losses
+        given.  Training mode takes ``generator`` and ``bn_stats`` as
+        ``forward`` does.  f32 only: the JAX function cannot run in bf16
+        (its heads read the uncast f32 weights), so bf16 raises."""
+        cfg = self.cfg
+        if (cfg.compute_dtype != "float32"
+                or self.up.weight.dtype != torch.float32):
+            raise ValueError("MetNet3.class_outputs runs in float32 only, "
+                             "as metnet3_class_outputs does")
+        feats = self(x, timestamps, generator=generator, bn_stats=bn_stats,
+                     return_features=True)
+        ret = {}
+
+        def head(suffix, labels, region_targets):
+            conv = getattr(self, f"classifier_{suffix}")
+            bounds = getattr(self, f"{suffix}_boundaries")
+            logits = vnn.conv2d(feats, conv.weight, conv.bias)
+            ret[f"logits_{suffix}"] = logits
+            loss = 0.0
+            if labels is not None:
+                loss = L.pm_class_cross_entropy(logits, labels, bounds)
+                ret[f"loss_{suffix}"] = loss
+            ret[f"predicted_{suffix}"] = categorical_to_continuous(
+                logits.argmax(dim=1), bounds)
+            regr_loss = 0.0
+            regional = getattr(self, f"regr_regional_{suffix}", None)
+            if regional is not None:
+                src = feats.detach() if cfg.ignore_backbone else feats
+                r = vnn.conv2d(src, regional[0].weight, regional[0].bias)
+                r = vnn.linear(r.reshape(r.shape[0], -1), regional[2].weight,
+                               regional[2].bias)
+                ret[f"region_preds_{suffix}"] = r
+                if region_targets is not None:
+                    regr_loss = L.regional_mse_loss(r, region_targets)
+                    ret[f"regr_loss_{suffix}"] = regr_loss
+            return loss + regr_loss
+
+        total = 0.0
+        if cfg.pm25 and cfg.pm25_class_head:
+            total = total + head("pm25", labels_pm25, region_targets_pm25)
+        if cfg.pm10:
+            total = total + head("pm10", labels_pm10, region_targets_pm10)
+        ret["loss"] = total
+        return ret
+
+
+def get_ignore_keys_for_eval(cfg: MetNet3Config) -> list:
+    """Output keys to drop at evaluation, as the JAX package's
+    ``get_ignore_keys_for_eval``."""
+    keys = []
+    if cfg.pm25:
+        keys += ["loss_pm25", "logits_pm25"]
+        if cfg.direct_regional:
+            keys += ["regr_loss_pm25"]
+    if cfg.pm10:
+        keys += ["loss_pm10", "logits_pm10"]
+        if cfg.direct_regional:
+            keys += ["regr_loss_pm10"]
+    return keys

@@ -17,9 +17,10 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import Tensor
 
-# the card's published peaks (H100 SXM data sheet): tensor-core bf16,
-# CUDA-core f32, device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the card's published peaks (H100 SXM data sheet): tensor-core bf16 and
+# int8, CUDA-core f32, device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12,
+              torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 

@@ -6,7 +6,9 @@ drop out of the mean) with an optional boolean mask.
 Canonical Focal-R scales each cell's error by ``tanh(0.5 * |beta * e|) **
 gamma`` (= ``(2 * sigmoid(beta |e|) - 1) ** gamma``: 0 at e = 0, -> 1 for
 large errors); ``focusing="sigmoid"`` is the legacy ``sigmoid(|beta e|) **
-gamma``.  The class-head cross-entropy waits for the class head.
+gamma``.  The class heads' losses are the bucketized cross-entropy
+``pm_class_cross_entropy`` and the regional ``regional_mse_loss``; their
+logits keep PyTorch's class axis, (N, C, ...), where JAX's are channel-last.
 
 Data parallel: given a process ``group``, each loss takes this rank's rows
 and returns this rank's share of the global masked mean, its own sum over
@@ -18,7 +20,7 @@ hold different numbers of valid targets.)
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -88,6 +90,27 @@ def huber_loss(preds: Tensor, targets: Tensor, *, delta: float = 10.0,
     err = (preds - targets).abs()
     quad = err.clamp(max=delta)
     return _masked_mean(0.5 * quad ** 2 + delta * (err - quad), m, group)
+
+
+def pm_class_cross_entropy(logits: Tensor, targets: Tensor,
+                           boundaries: Sequence[float]) -> Tensor:
+    """The class head's loss: continuous PM targets (N, ...) bucketized by
+    the class boundaries (class = the number of boundaries below the
+    target), cross-entropy of the logits (N, C, ...) over the class axis,
+    NaN targets left out of the mean."""
+    b = torch.as_tensor(boundaries, dtype=targets.dtype,
+                        device=targets.device)
+    valid = torch.isfinite(targets)
+    labels = torch.bucketize(targets, b, right=False)
+    labels = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=1)
+    nll = -logp.gather(1, labels.unsqueeze(1)).squeeze(1)
+    return _masked_mean(nll, valid)
+
+
+def regional_mse_loss(region_preds: Tensor, region_targets: Tensor) -> Tensor:
+    """The regional regression heads' loss: MSE over non-NaN targets."""
+    return mse_loss(region_preds, region_targets)
 
 
 def make_loss(name: str, **kw) -> Callable[..., Tensor]:
