@@ -12,10 +12,11 @@ drives the R15 repro (the fused MBConv against cuDNN's passes), the R1/R14
 repro (per-head attention at 8 and 16 windows a CTA), the R7 repro (one
 MaxViT layer's block and grid attention in one launch), the repros of R1's
 variants R4, R10, R9, R11 and R3, the repros of the out-projection
-family R12-R13, R2 and R8, and the head-pack repros R5 and R6, and last
-the inference entry points (serving, re-analysis generation and station
-evaluation) at the shipped configuration, data parallelism, and the class
-head and int8 PTQ of the resnet convs.  Phases:
+family R12-R13, R2 and R8, and the head-pack repros R5 and R6, then the
+inference entry points (serving, re-analysis generation and station
+evaluation) at the shipped configuration, data parallelism, the class head
+and int8 PTQ of the resnet convs, and last the legacy station and grid
+models, SimVP and the utilities.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -114,7 +115,23 @@ head and int8 PTQ of the resnet convs.  Phases:
    forwards' ms, and one int8 conv at (300, 128, 84, 70) against cuDNN's
    bf16 conv beside both bounds.  The int8 conv is a stock route
    (im2col + ``torch._int_mm``), so it is reported on a line of its own,
-   not in the kernel report.
+   not in the kernel report;
+16. the legacy station and grid models, SimVP and the utilities, in f32
+   with TF32 off (restored after), each model seeded and held on the card
+   to the same module on the CPU within 1e-4 of max|out|, its output shape
+   and finiteness, its forward's median ms of 10 after 2 warm-ups, the
+   profiler's kernel time a forward, the median again after the profile
+   and a ``StepTimer``'s host p50 through ``host_sync``: (a) the station
+   models at B = 8, 400 + 150 stations, hidden 128, 7 + 6 hours (MultiAir
+   under RevIN, DishTS and Standard; simulation, simulation_avg and wo),
+   one batch row's stations all masked at one step; (b) the grid models v1,
+   v2 and v3 (v3 under Standard, RevIN and DishTS) at B = 1 over the 82 x
+   67 grid, 6,044 joint-attention tokens; (c) SimVP at its spec's widths,
+   B = 4, (7, 12, 80, 64); (d) a ``trace`` with an ``annotate`` region
+   writes its trace file, and ``oom_guard`` rewraps a real CUDA
+   out-of-memory error.  No hand-written kernel launches in it (K1, K3,
+   K3-w and the hash counters stay at 0).  Each sub-phase prints its
+   seconds.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -2237,6 +2254,302 @@ def int8_path(dev, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the legacy station and grid models, SimVP and the utilities
+# ---------------------------------------------------------------------------
+
+# the legacy models at the production station count (400 Korean, 150
+# Chinese) and width (hidden 128, MetNet3's), 7 input and 6 output hours;
+# the grid models over the 82 x 67 grid (5,494 + 550 joint-attention
+# tokens); SimVP at its spec's own widths over 80 x 64, as its decoder
+# cannot take 82 x 67
+LEGACY_SPEC = dict(input_dim=7, feat_dim=12, hidden_dim=128, pm25_mean=20.0,
+                   pm25_std=10.0, output_dim=6, prev_len=7,
+                   korea_stn_num=400, china_stn_num=150)
+LEGACY_GRID = (82, 67)
+STATION_CASES = [("multiair", "RevIN"), ("multiair", "DishTS"),
+                 ("multiair", "Standard"), ("simulation", "RevIN"),
+                 ("simulation_avg", "RevIN"), ("wo", "RevIN")]
+GRID_CASES = [(1, "Standard"), (2, "Standard"), (3, "Standard"),
+              (3, "RevIN"), (3, "DishTS")]
+STATION_BATCH, GRID_BATCH, SIMVP_BATCH = 8, 1, 4
+SIMVP_SHAPE_IN = (7, 12, 80, 64)
+# max|card - CPU| / max|CPU|: f32 on both sides with TF32 off, sums taken
+# in another order through 13 recurrent steps
+LEGACY_REL = 1e-4
+LEGACY_ITERS, LEGACY_WARMUP = 10, 2
+
+
+def median_ms(fn, iters: int = LEGACY_ITERS,
+              warmup: int = LEGACY_WARMUP) -> float:
+    """The median of ``iters`` calls' milliseconds on the card (CUDA
+    events around each call), after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def legacy_station_io(spec, batch: int, seed: int, grid=None):
+    """The station inputs of ``benchmarks/legacy_models.py`` drawn from a
+    numpy seed, with batch row 0's stations all masked at step 0: feats,
+    masks, raw_times, and the grid history (``grid`` (H, W)) or the
+    station history.  Returns (rng, {name: CPU tensor})."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    stn, t = spec.total_stn_num, spec.input_dim + spec.output_dim
+    masks = rng.random((batch, t, stn)) > 0.2
+    masks[0, 0] = False
+    io = dict(
+        feats=rng.random((batch, spec.input_dim, stn, spec.feat_dim)) * 30,
+        masks=masks,
+        raw_times=np.stack([rng.integers(1, 13, (batch, t)),
+                            rng.integers(1, 29, (batch, t)),
+                            rng.integers(0, 24, (batch, t))], axis=-1),
+        prev_vals=rng.random((batch, spec.prev_len) + (grid or (stn,))) * 30)
+    return rng, {k: torch.from_numpy(v if v.dtype == bool
+                                     else v.astype(np.float32))
+                 for k, v in io.items()}
+
+
+def legacy_vs_cpu(name: str, model, inputs, shape, dev, card: str):
+    """``model``'s forward on the CPU, then the same module moved to the
+    card on the same inputs: the relative error (tolerance LEGACY_REL), the
+    shape and finiteness, the card's median forward ms, and the profiler's
+    device time by kernel (its sum against the forward's ms is the card's
+    busy share); then the median again, and the host clock's p50 over the
+    same count of forwards through a ``StepTimer`` (``host_sync`` ends
+    each).  Returns (error, ms, the model on the card, the inputs on the
+    card)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.repros.common import kernel_ms
+    from vit_grid_model_tpu_torch.utils.profiling import StepTimer
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = model(**inputs)
+        model = model.to(dev)
+        x = {k: v.to(dev) for k, v in inputs.items()}
+        out = model(**x)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (out.cpu() - ref).abs().max().item() / scale
+        ms = median_ms(lambda: model(**x))
+        kernels = kernel_ms(lambda: model(**x))
+        ms_again = median_ms(lambda: model(**x))
+        timer = StepTimer(warmup=LEGACY_WARMUP)
+        for _ in range(LEGACY_WARMUP + LEGACY_ITERS):
+            with timer.step() as step:
+                step["result"] = model(**x)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    ok = (tuple(out.shape) == shape and torch.isfinite(out).all().item()
+          and scale > 0 and err <= LEGACY_REL)
+    print(f"{name}: out {tuple(out.shape)}, max|card - CPU|/max {err:.3e} "
+          f"(tol {LEGACY_REL:g}), max|out| {scale:.4g}; forward "
+          f"{ms:.3f} ms (median of {LEGACY_ITERS} after {LEGACY_WARMUP}, "
+          f"CUDA events); {time.perf_counter() - t0:.1f} s; card: {card}",
+          flush=True)
+    print(f"  profiler: {busy:.3f} ms of kernels a forward ("
+          f"{100 * busy / ms:.0f}% of it busy); top: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in top), flush=True)
+    print(f"  after the profile: median {ms_again:.3f} ms (CUDA events); "
+          f"StepTimer (host clock, host_sync) p50 {timer.p50() * 1e3:.3f} "
+          f"ms over {len(timer.times)} forwards", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: the card's forward is not the CPU's, "
+                             f"or is not finite of shape {shape}")
+    return err, ms, model, x
+
+
+def legacy_station_path(dev, card: str):
+    """Phase 16a: each station variant at B = 8 and production width, the
+    card against the CPU.  Returns {case: (error, ms)} and the last
+    model with its inputs, for phase 16d."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_station_model
+    from vit_grid_model_tpu_torch.models.legacy.station import (
+        StationModelSpec)
+
+    results = {}
+    for i, (variant, method) in enumerate(STATION_CASES):
+        spec = StationModelSpec(**LEGACY_SPEC, variant=variant,
+                                normalization_method=method)
+        rng, io = legacy_station_io(spec, STATION_BATCH, SEED + 16 + i)
+        stn, korea = spec.total_stn_num, spec.korea_stn_num
+        t_out = spec.output_dim
+        if variant == "multiair":
+            sat_in = rng.random((STATION_BATCH, stn, 13))
+            sat_in[sat_in < 0.1] = -1         # the missing-value sentinel
+            io["sat_outputs"] = torch.from_numpy(
+                (rng.random((STATION_BATCH, stn, t_out)) * 25).astype(
+                    np.float32))
+            io["sat_inputs"] = torch.from_numpy(sat_in.astype(np.float32))
+        elif variant != "wo":
+            s4 = (spec.feat_dim // 2) * (4 if variant == "simulation" else 1)
+            io["simulation"] = torch.from_numpy(
+                (rng.random((STATION_BATCH, korea, t_out * s4 + 4))
+                 * 25).astype(np.float32))
+        name = f"station {variant} {method}"
+        err, ms, model, x = legacy_vs_cpu(
+            name, seeded_station_model(spec, SEED), io,
+            (STATION_BATCH, korea, t_out), dev, card)
+        results[name] = (err, ms)
+    return results, (model, x)
+
+
+def legacy_grid_path(dev, card: str):
+    """Phase 16b: grid versions 1-3 (v3 under Standard, RevIN and DishTS)
+    at B = 1 over the 82 x 67 grid, the card against the CPU.  Returns
+    {case: (error, ms)}."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_grid_model
+    from vit_grid_model_tpu_torch.models.legacy.grid import GridModelSpec
+
+    results = {}
+    for i, (version, method) in enumerate(GRID_CASES):
+        spec = GridModelSpec(**LEGACY_SPEC, grid_shape=LEGACY_GRID,
+                             normalization_method=method, version=version)
+        rng, io = legacy_station_io(spec, GRID_BATCH, SEED + 32 + i,
+                                    grid=LEGACY_GRID)
+        steps = spec.input_dim + spec.output_dim
+        io["simulation"] = torch.from_numpy(
+            (rng.random((GRID_BATCH,) + LEGACY_GRID
+                        + (steps * spec.block_channels,)) * 25).astype(
+                np.float32))
+        name = f"grid v{version} {method}"
+        err, ms, _, _ = legacy_vs_cpu(
+            name, seeded_grid_model(spec, SEED), io,
+            (GRID_BATCH, spec.cells, spec.output_dim), dev, card)
+        results[name] = (err, ms)
+    return results
+
+
+def simvp_path(dev, card: str):
+    """Phase 16c: SimVP at its spec's widths, B = 4 over 80 x 64, the card
+    against the CPU.  Returns (error, ms)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_simvp
+    from vit_grid_model_tpu_torch.models.simvp import SimVPSpec
+
+    spec = SimVPSpec(shape_in=SIMVP_SHAPE_IN)
+    x = np.random.default_rng(SEED + 48).standard_normal(
+        (SIMVP_BATCH,) + SIMVP_SHAPE_IN).astype(np.float32)
+    err, ms, _, _ = legacy_vs_cpu(
+        f"SimVP hid_s {spec.hid_s}, hid_t {spec.hid_t}, n_s {spec.n_s}, "
+        f"n_t {spec.n_t}, groups {spec.groups}",
+        seeded_simvp(spec, SEED), {"x": torch.from_numpy(x)},
+        (SIMVP_BATCH,) + SIMVP_SHAPE_IN, dev, card)
+    return err, ms
+
+
+def utilities_on_the_card(model, inputs, dev, card: str, root: str):
+    """Phase 16d: a ``trace`` with an ``annotate`` region around a station
+    forward writes its trace file; ``oom_guard`` rewraps a real CUDA
+    out-of-memory error, raised by asking for twice the card's memory.
+    Returns the trace's count of device kernel events."""
+    import glob
+
+    import torch
+
+    from vit_grid_model_tpu_torch.utils.hbm import oom_guard
+    from vit_grid_model_tpu_torch.utils.profiling import annotate, trace
+
+    log_dir = tempfile.mkdtemp(prefix="trace_", dir=root)
+    with torch.inference_mode(), trace(log_dir):
+        with annotate("phase16_station_forward"):
+            model(**inputs)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    if not any(e.get("name") == "phase16_station_forward" for e in events):
+        raise AssertionError("the annotation is not in the trace")
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"trace: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, the annotation and "
+          f"{kernels} device kernel events", flush=True)
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        with oom_guard("phase 16d allocation", 1, dev):
+            torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    except RuntimeError as e:
+        if not (isinstance(e.__cause__, torch.cuda.OutOfMemoryError)
+                and "batch_size=1" in str(e)
+                and torch.cuda.get_device_name(dev) in str(e)):
+            raise
+        print(f"oom_guard: {e}", flush=True)
+    else:
+        raise AssertionError(f"{2 * total} bytes were allocated")
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def legacy_path(dev, card: str, root: str):
+    """Phase 16, in f32 with TF32 off (restored after): 16a-16d.  No
+    hand-written kernel may launch in it."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_attn.reset_launches()
+    try:
+        phase("16a", "the legacy station models at production width")
+        t = time.perf_counter()
+        station, (model, x) = legacy_station_path(dev, card)
+        print(f"phase 16a: {time.perf_counter() - t:.1f} s", flush=True)
+
+        phase("16b", "the legacy grid models over the 82 x 67 grid")
+        t = time.perf_counter()
+        grid = legacy_grid_path(dev, card)
+        print(f"phase 16b: {time.perf_counter() - t:.1f} s", flush=True)
+
+        phase("16c", "SimVP at its spec's widths")
+        t = time.perf_counter()
+        simvp = simvp_path(dev, card)
+        print(f"phase 16c: {time.perf_counter() - t:.1f} s", flush=True)
+
+        phase("16d", "the utilities on the card")
+        t = time.perf_counter()
+        utilities_on_the_card(model, x, dev, card, root)
+        print(f"phase 16d: {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    counts = (cuda_attn.launches, cuda_attn.bwd_launches,
+              cuda_attn.wgrad_launches, cuda_attn.hash_launches)
+    if counts != (0, 0, 0, 0):
+        raise AssertionError(f"phase 16 launched hand-written kernels (K1, "
+                             f"K3, K3-w, hash) {counts}")
+    print(json.dumps({"phase16": {
+        "card": card, **{k: {"max_rel_err": e, "forward_ms": ms}
+                         for k, (e, ms) in {**station, **grid,
+                                            "simvp": simvp}.items()}}}),
+          flush=True)
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection) at the bf16
@@ -2458,6 +2771,10 @@ def run(root: str) -> int:
     t15 = time.perf_counter()
     int8_launches = int8_path(dev, card)
     print(f"phase 15b: {time.perf_counter() - t15:.1f} s", flush=True)
+
+    t16 = time.perf_counter()
+    legacy_path(dev, card, root)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[

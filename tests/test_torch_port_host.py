@@ -1,5 +1,6 @@
 """The port's own host code against the JAX package's originals: configs,
-the eval, generation and station CLIs' parsers, the state-dict exporter,
+the eval, generation and station CLIs' parsers, the state-dict exporters
+(MetNet3's, the legacy station and grid models' and SimVP's),
 the synthetic tree (also with its station keywords), the datasets (the
 station one too) and ``BatchLoader``, ``device_prefetch``, the assembly
 (with the host bf16 cast and the masked classes), ``pad_to_multiple``, the
@@ -25,6 +26,7 @@ from vit_grid_model_tpu.cli import evaluation_vit as jax_cli
 from vit_grid_model_tpu.cli import generate_reanalysis as jax_gen_cli
 from vit_grid_model_tpu.cli import station_eval as jax_stn_cli
 from vit_grid_model_tpu.core import config as jax_config
+from vit_grid_model_tpu.core import torch_export as jax_exporters
 from vit_grid_model_tpu.core.torch_export import (
     export_metnet3_state_dict as jax_export)
 from vit_grid_model_tpu.data import assembly as jax_assembly
@@ -34,12 +36,16 @@ from vit_grid_model_tpu.data import readers as jax_readers
 from vit_grid_model_tpu.data import synthetic as jax_synthetic
 from vit_grid_model_tpu.evaluation import logwriter as jax_logwriter
 from vit_grid_model_tpu.evaluation import metrics as jax_metrics
+from vit_grid_model_tpu.models import simvp as jax_simvp
+from vit_grid_model_tpu.models.legacy import grid as jax_grid
+from vit_grid_model_tpu.models.legacy import station as jax_station
 from vit_grid_model_tpu.models.metnet3 import metnet3_init
 from vit_grid_model_tpu.parallel import mesh as jax_mesh
 from vit_grid_model_tpu_torch.cli import evaluation_vit as port_cli
 from vit_grid_model_tpu_torch.cli import generate_reanalysis as port_gen_cli
 from vit_grid_model_tpu_torch.cli import station_eval as port_stn_cli
 from vit_grid_model_tpu_torch.core import config as port_config
+from vit_grid_model_tpu_torch.core import export as port_exporters
 from vit_grid_model_tpu_torch.core.export import (
     export_metnet3_state_dict as port_export)
 from vit_grid_model_tpu_torch.data import assembly as port_assembly
@@ -135,6 +141,59 @@ def test_exporter_bit_equal(depth):
     ref = jax_export(params, cfg)
     ours = port_export(params, port_config.MetNet3Config(
         **dataclasses.asdict(cfg)))
+    assert list(ours) == list(ref)
+    for k, v in ref.items():
+        assert ours[k].dtype == v.dtype and ours[k].shape == v.shape, k
+        assert np.array_equal(ours[k], v), k
+
+
+def _numpy_tree(init, seed):
+    """A tree shaped as ``init(key)`` returns it, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
+    return jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+
+
+_LEGACY = dict(input_dim=3, feat_dim=12, hidden_dim=32, pm25_mean=20.0,
+               pm25_std=10.0, output_dim=2, prev_len=3, korea_stn_num=4,
+               china_stn_num=2)
+
+
+@pytest.mark.parametrize("name,case", [
+    ("station", ("multiair", "RevIN")), ("station", ("multiair", "DishTS")),
+    ("station", ("multiair", "Standard")),
+    ("station", ("simulation", "RevIN")),
+    ("station", ("simulation_avg", "RevIN")), ("station", ("wo", "RevIN")),
+    ("grid", (1, "Standard")), ("grid", (2, "Standard")),
+    ("grid", (3, "Standard")), ("grid", (3, "RevIN")),
+    ("grid", (3, "DishTS")),
+    ("simvp", ((2, 2, 8, 8), 2, 2)), ("simvp", ((3, 2, 16, 16), 4, 3))])
+def test_legacy_exporters_bit_equal(name, case):
+    coords = np.arange(6.0)
+    if name == "station":
+        variant, method = case
+        spec = jax_station.StationModelSpec(
+            **_LEGACY, normalization_method=method, variant=variant)
+        params = _numpy_tree(lambda k: jax_station.station_model_init(
+            k, spec, coords, coords), 1)
+        args = ("export_station_model", params, variant)
+    elif name == "grid":
+        version, method = case
+        spec = jax_grid.GridModelSpec(
+            **_LEGACY, grid_shape=(6, 5), normalization_method=method,
+            version=version)
+        params = _numpy_tree(lambda k: jax_grid.grid_model_init(
+            k, spec, coords, coords, np.zeros((6, 5, 2))), 2)
+        args = ("export_grid_model", params, version)
+    else:
+        shape_in, n_s, n_t = case
+        spec = jax_simvp.SimVPSpec(shape_in=shape_in, hid_s=4, hid_t=8,
+                                   n_s=n_s, n_t=n_t, groups=2)
+        params = _numpy_tree(lambda k: jax_simvp.simvp_init(k, spec), 3)
+        args = ("export_simvp", params, n_s, n_t)
+    ref = getattr(jax_exporters, args[0])(*args[1:])
+    ours = getattr(port_exporters, args[0])(*args[1:])
     assert list(ours) == list(ref)
     for k, v in ref.items():
         assert ours[k].dtype == v.dtype and ours[k].shape == v.shape, k

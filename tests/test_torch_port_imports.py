@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``vit_grid_model_tpu_torch`` (among them the inference entry points:
-serving, generation and station evaluation with their CLIs) and
-``chip_smoke.py`` in a fresh interpreter (the int8 convs of
-``ops/quantize.py`` and the class heads among them)
+serving, generation and station evaluation with their CLIs, the int8
+convs of ``ops/quantize.py``, the class heads, the legacy station and grid
+models, SimVP with its conv blocks, and the utilities) and
+``chip_smoke.py`` in a fresh interpreter
 loads no ``jax``, no Triton, nothing of the JAX package
 (``vit_grid_model_tpu``) and nothing of ``benchmarks``, and builds no
 kernel."""
@@ -17,11 +18,14 @@ _CODE = """
 import importlib, pkgutil, sys
 import vit_grid_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
-assert len(names) >= 64, names
+assert len(names) >= 79, names
 new = {'vit_grid_model_tpu_torch.' + m for m in (
     'evaluation.serving', 'evaluation.generate', 'evaluation.station_eval',
     'cli.generate_reanalysis', 'cli.station_eval', 'parallel.mesh',
-    'models.classification', 'ops.quantize')}
+    'models.classification', 'ops.quantize', 'ops.recurrent',
+    'ops.convblocks', 'models.normalizers', 'models.legacy',
+    'models.legacy.station', 'models.legacy.grid', 'models.simvp', 'utils',
+    'utils.hbm', 'utils.profiling', 'utils.debug')}
 assert new <= set(names), new - set(names)
 for name in names:
     importlib.import_module(name)

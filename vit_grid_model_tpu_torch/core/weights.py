@@ -1,5 +1,6 @@
 """Weights for the port's ``MetNet3``: from a JAX parameter pytree, from a
-reference ``.pkt`` checkpoint, or from a numpy seed.
+reference ``.pkt`` checkpoint, or from a numpy seed; and for the legacy
+station and grid models and SimVP, from a JAX pytree or a numpy seed.
 
 The module tree uses the state_dict keys of
 ``core/export.py::export_metnet3_state_dict`` (the port's copy of the JAX
@@ -25,8 +26,16 @@ import torch
 from torch import nn
 
 from vit_grid_model_tpu_torch.core.config import MetNet3Config
-from vit_grid_model_tpu_torch.core.export import export_metnet3_state_dict
+from vit_grid_model_tpu_torch.core.export import (export_grid_model,
+                                                  export_metnet3_state_dict,
+                                                  export_simvp,
+                                                  export_station_model)
+from vit_grid_model_tpu_torch.models.legacy.grid import (GridModel,
+                                                         GridModelSpec)
+from vit_grid_model_tpu_torch.models.legacy.station import (StationModel,
+                                                            StationModelSpec)
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
+from vit_grid_model_tpu_torch.models.simvp import SimVP, SimVPSpec
 from vit_grid_model_tpu_torch.ops import quantize
 
 
@@ -95,9 +104,9 @@ def seed_module(model: nn.Module, seed: int) -> nn.Module:
     """``model`` with every parameter and BatchNorm statistic drawn from
     ``np.random.default_rng(seed)``, in state_dict order: torch-default
     fan-in uniform weights, standard-normal embeddings and registers, norm
-    gains near 1, and running variances in [0.5, 1.5].  The class
-    boundaries and any int8 sidecars are left as they are: quantize after
-    seeding.  In eval mode."""
+    gains (RevIN's affine weight among them) near 1, and running variances
+    in [0.5, 1.5].  The class boundaries and any int8 sidecars are left as
+    they are: quantize after seeding.  In eval mode."""
     rng = np.random.default_rng(seed)
     sd = {}
     for name, t in model.state_dict().items():
@@ -108,11 +117,11 @@ def seed_module(model: nn.Module, seed: int) -> nn.Module:
             continue
         if leaf == "running_var":
             v = rng.uniform(0.5, 1.5, shape)
-        elif leaf == "running_mean" or leaf == "b" or (
+        elif leaf in ("running_mean", "b", "affine_bias") or (
                 leaf == "bias" and ".norm" in name):
             v = 0.1 * rng.standard_normal(shape)
-        elif leaf in ("g", "gamma") or (leaf == "weight" and (
-                ".norm" in name or len(shape) == 1)):
+        elif leaf in ("g", "gamma", "affine_weight") or (
+                leaf == "weight" and (".norm" in name or len(shape) == 1)):
             v = 1.0 + 0.1 * rng.standard_normal(shape)
         elif "register_tokens" in name or name.endswith(
                 ("condition_lead_time.weight", "rel_pos_bias.weight")) or (
@@ -126,3 +135,62 @@ def seed_module(model: nn.Module, seed: int) -> nn.Module:
         sd[name] = torch.from_numpy(v.astype(np.float32))
     model.load_state_dict(sd, strict=False)
     return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# the legacy station and grid models, and SimVP
+# ---------------------------------------------------------------------------
+
+
+def _load_numpy(model: nn.Module, state_dict) -> nn.Module:
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in state_dict.items()}, strict=True)
+    return model.eval()
+
+
+def station_model_from_jax(params, spec: StationModelSpec) -> StationModel:
+    """A ``station_model_init``-shaped pytree -> the port's model in f32 on
+    the CPU, in eval mode; the coordinates from ``params``."""
+    return _load_numpy(StationModel(spec, params["lats"], params["lons"]),
+                       export_station_model(params, spec.variant))
+
+
+def grid_model_from_jax(params, spec: GridModelSpec) -> GridModel:
+    """A ``grid_model_init``-shaped pytree -> the port's model in f32 on the
+    CPU, in eval mode; the coordinates from ``params``."""
+    return _load_numpy(GridModel(spec, params["lats"], params["lons"],
+                                 params["cmaq_coords"]),
+                       export_grid_model(params, spec.version))
+
+
+def simvp_from_jax(params, spec: SimVPSpec) -> SimVP:
+    """A ``simvp_init``-shaped pytree -> the port's model in f32 on the CPU,
+    in eval mode."""
+    return _load_numpy(SimVP(spec), export_simvp(params, spec.n_s, spec.n_t))
+
+
+def _station_coords(rng, n: int):
+    """Station latitudes in [33, 38) and longitudes in [125, 130)."""
+    return rng.random(n) * 5 + 33, rng.random(n) * 5 + 125
+
+
+def seeded_station_model(spec: StationModelSpec, seed: int) -> StationModel:
+    """The station model with its coordinates and every parameter drawn
+    from ``seed`` (``seed_module``)."""
+    rng = np.random.default_rng(seed)
+    return seed_module(StationModel(spec, *_station_coords(
+        rng, spec.total_stn_num)), seed)
+
+
+def seeded_grid_model(spec: GridModelSpec, seed: int) -> GridModel:
+    """The grid model with its coordinates (grid cells' in [30, 40)) and
+    every parameter drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lats, lons = _station_coords(rng, spec.total_stn_num)
+    coords = rng.random(spec.grid_shape + (2,)) * 10 + 30
+    return seed_module(GridModel(spec, lats, lons, coords), seed)
+
+
+def seeded_simvp(spec: SimVPSpec, seed: int) -> SimVP:
+    """SimVP with every parameter drawn from ``seed``."""
+    return seed_module(SimVP(spec), seed)

@@ -43,6 +43,7 @@ from vit_grid_model_tpu_torch.evaluation import logwriter
 from vit_grid_model_tpu_torch.evaluation.metrics import EvaluationMetrics
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.parallel.mesh import gather_rows, shard_rows
+from vit_grid_model_tpu_torch.utils.hbm import oom_guard
 
 
 def resolve_device(device) -> torch.device:
@@ -284,22 +285,24 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
             simulation, curr_re, reanalysis, re_cls = batch[:4]
             B = simulation.shape[0]
             marks = [tb]
-            # queued on the device; a ragged batch without the group, on
-            # rank 0 alone
-            if not ragged:
-                preds_dev = model(x, ts, group=group)
-            elif primary:
-                preds_dev = model(x, ts)
-            marks.append(time.perf_counter())
-            nxt = next(it, None)                     # stage k+1 meanwhile
-            marks.append(time.perf_counter())
-            staged = stage(nxt) if nxt is not None else None
-            marks.append(time.perf_counter())
-            if not ragged:
-                preds_dev = gather_rows(preds_dev, group)
+            with oom_guard("MetNet3 evaluation forward", batch_size, device):
+                # queued on the device; a ragged batch without the group,
+                # on rank 0 alone
+                if not ragged:
+                    preds_dev = model(x, ts, group=group)
+                elif primary:
+                    preds_dev = model(x, ts)
+                marks.append(time.perf_counter())
+                nxt = next(it, None)                 # stage k+1 meanwhile
+                marks.append(time.perf_counter())
+                staged = stage(nxt) if nxt is not None else None
+                marks.append(time.perf_counter())
+                if not ragged:
+                    preds_dev = gather_rows(preds_dev, group)
+                if primary:
+                    preds = preds_dev.cpu().numpy().reshape(B, L, cells)
             if not primary:
                 continue
-            preds = preds_dev.cpu().numpy().reshape(B, L, cells)
             marks.append(time.perf_counter())
             preds = np.maximum(preds, 0.0)
             if np.isnan(preds).any():

@@ -51,6 +51,7 @@ from vit_grid_model_tpu_torch.core import distributed
 from vit_grid_model_tpu_torch.core.config import MetNet3Config, TrainConfig
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.train import losses as L
+from vit_grid_model_tpu_torch.utils.hbm import oom_guard
 
 
 @dataclasses.dataclass
@@ -214,21 +215,26 @@ def train_loop(state: TrainState, batches: Iterable, step_fn: Callable, *,
     for i, batch in enumerate(batches):
         if max_steps is not None and i >= max_steps:
             break
-        metrics = step_fn(state, batch)
-        if step_seconds is not None:
-            float(metrics["loss"])           # waits for the step
-            now = time.perf_counter()
-            step_seconds.append(now - last_end)
-            last_end = now
-        if i % log_every == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            now = time.time()
-            rate = (i + 1) / (now - t0)
-            # rolling window = the steady state, free of warmup
-            last = ((i + 1 - roll[0]) / max(now - roll[1], 1e-9)
-                    if i else 0.0)
-            roll[:] = [i + 1, now]
-            log(f"step {state.step}: loss={m['loss']:.4f} "
-                f"rmse={m['rmse']:.3f} gnorm={m['grad_norm']:.3f} "
-                f"({rate:.2f} steps/s cum, {last:.2f} last-{log_every})")
+        with oom_guard("train step",
+                       batch["x"].shape[0]
+                       if isinstance(batch, dict) and "x" in batch
+                       else None):
+            # exhaustion surfaces at the call or at the readbacks below
+            metrics = step_fn(state, batch)
+            if step_seconds is not None:
+                float(metrics["loss"])           # waits for the step
+                now = time.perf_counter()
+                step_seconds.append(now - last_end)
+                last_end = now
+            if i % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                now = time.time()
+                rate = (i + 1) / (now - t0)
+                # rolling window = the steady state, free of warmup
+                last = ((i + 1 - roll[0]) / max(now - roll[1], 1e-9)
+                        if i else 0.0)
+                roll[:] = [i + 1, now]
+                log(f"step {state.step}: loss={m['loss']:.4f} "
+                    f"rmse={m['rmse']:.3f} gnorm={m['grad_norm']:.3f} "
+                    f"({rate:.2f} steps/s cum, {last:.2f} last-{log_every})")
     return state
