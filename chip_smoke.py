@@ -52,10 +52,13 @@ models, SimVP and the utilities.  Phases:
    windows a CTA (bf16 at Bw 2,880, f32, a ragged Bw, 3 heads x 16),
    bit-identical on a second launch; then the repro's entry point, which
    must launch the kernel at both settings, with kernel and plain times;
-9. R7: the MaxViT layer megakernel vs its plain version (bf16 at S 96 and
-   300, f32 at S 2, a diverging-score case in both types), bit-identical on
-   a second launch; then the repro's entry point, which must launch it,
-   with kernel, plain and two-K1 baseline times;
+9. R7: the MaxViT layer megakernel vs its plain version (bf16, the strip
+   design with its scratch map, at S 96, 300, 1 and 37; f32 at S 2; a
+   diverging-score case in both types), bit-identical on a second launch;
+   then the repro's entry point, which must launch it, with kernel, plain
+   and two-K1 baseline times and the cluster sweep, each cluster size
+   beside its occupancy line, and a line with the default cluster's
+   occupancy, the kernel, the baseline and their ratio at S 300;
 10. R4, R10, R9 and R11: the head-major batched kernel, the stacked-softmax
    kernel, R9's route through the per-head kernel, R11's core kernel and
    R11 whole vs their plain versions (bf16 at Bw 2,880, f32, a ragged Bw,
@@ -1662,13 +1665,17 @@ def repro_path(module, wrappers, counts):
 
 
 # R7 comparison cases: (name, S, dtype, head-0 bias offset); the offset
-# puts head 0's scores ~200 below head 1's in both attentions
+# puts head 0's scores ~200 below head 1's in both attentions.  bf16 runs
+# the strip design (its scratch map), f32 the first design; S = 37 is no
+# multiple of the clusters the card holds at once
 LAYER_CASES = [
     ("repro S=96", 96, "bfloat16", 0.0),
     ("flagship S=300", 300, "bfloat16", 0.0),
     ("f32 S=2", 2, "float32", 0.0),
     ("diverging S=4", 4, "bfloat16", -200.0),
     ("diverging S=4", 4, "float32", -200.0),
+    ("single S=1", 1, "bfloat16", 0.0),
+    ("ragged S=37", 37, "bfloat16", 0.0),
 ]
 
 
@@ -2681,6 +2688,12 @@ def run(root: str) -> int:
     layer_launches, layer_results = repro_path(
         repro_mega, [attention_variants],
         lambda: {"maxvit_layer_attention": attention_variants.layer_launches})
+    ly = layer_results[300]
+    print(f"R7 at S 300, bf16: {repro_mega.occupancy(torch.bfloat16)}; "
+          f"kernel {ly['kernel'][0]:.3f} ms, two-K1 baseline "
+          f"{ly['baseline'][0]:.3f} ms, kernel / baseline "
+          f"{ly['kernel'][0] / ly['baseline'][0]:.3f}; card: {card}",
+          flush=True)
 
     phase("10a", "R4, R10, R9 and R11 kernels vs plain on the card")
     variant_err = variants_vs_plain(dev)

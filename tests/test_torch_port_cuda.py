@@ -346,11 +346,21 @@ def test_perhead_attention_rejects_shapes_out_of_range():
         av.perhead_attention(x.to(torch.float16), wqkv, bias, 8)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("offset", [0.0, -200.0])
-def test_maxvit_layer_attention_matches_plain(dtype, offset):
-    """S = 3 sample-leads; offset -200 puts head 0's scores ~200 below
-    head 1's in both attentions."""
+# R7's cases: (dtype, head-0 bias offset, S, cluster).  S = 3 in both
+# types, offset -200 putting head 0's scores ~200 below head 1's in both
+# attentions; in bf16 (the strip design) S = 1, S = 37 (no multiple of the
+# clusters the card holds at once) and each cluster size of the repro's
+# sweep, and 1
+LAYER_TEST_CASES = (
+    [(dtype, offset, 3, None) for dtype in (torch.float32, torch.bfloat16)
+     for offset in (0.0, -200.0)]
+    + [(torch.bfloat16, 0.0, 1, None), (torch.bfloat16, 0.0, 37, None)]
+    + [(torch.bfloat16, 0.0, 5, c) for c in (1, 2, 3, 5, 6)])
+
+
+@pytest.mark.parametrize("dtype,offset,s,cluster", LAYER_TEST_CASES)
+def test_maxvit_layer_attention_matches_plain(dtype, offset, s, cluster):
+    """R7 against its plain version; a second launch is bit-identical."""
     _need_cuda()
     from vit_grid_model_tpu_torch.ops.attention_variants import (
         maxvit_layer_attention as plain_layer)
@@ -362,18 +372,70 @@ def test_maxvit_layer_attention_matches_plain(dtype, offset):
     for m in (block_attn, grid_attn):
         with torch.no_grad():
             m.rel_pos_bias.weight[:, 0] += offset
-    x, cond = repro.inputs(3, dtype, dev, 1)
+    x, cond = repro.inputs(s, dtype, dev, 1)
     r, ob, og = repro.layer_operands(block_attn.to(dev), grid_attn.to(dev),
                                      regs.to(dev), cond, dtype)
     before = av.layer_launches
     with torch.inference_mode():
         ref = plain_layer(x, r, ob, og, repro.WIN)
-        ours = av.maxvit_layer_attention(x, r, ob, og, repro.WIN)
-        again = av.maxvit_layer_attention(x, r, ob, og, repro.WIN)
+        ours = av.maxvit_layer_attention(x, r, ob, og, repro.WIN,
+                                         cluster=cluster)
+        again = av.maxvit_layer_attention(x, r, ob, og, repro.WIN,
+                                          cluster=cluster)
     torch.cuda.synchronize()
     assert av.layer_launches == before + 2
+    assert ours.shape == x.shape and ours.dtype == dtype
     err, scale = chip_smoke.kernel_errors(ours, again, ref, "layer")
     assert err <= TOL[dtype] * scale, err
+
+
+def test_maxvit_layer_attention_rejects_clusters_it_does_not_take():
+    """A cluster size that does not divide the 30 windows, one above 8, and
+    any cluster size off the strip design (f32) raise before a launch."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import megakernel as repro
+
+    dev = torch.device("cuda")
+    block_attn, grid_attn, regs = (t.to(dev) for t in repro.layer(0))
+    for dtype, cluster in ((torch.bfloat16, 4), (torch.bfloat16, 10),
+                           (torch.float32, 5)):
+        x, cond = repro.inputs(1, dtype, dev, 1)
+        r, ob, og = repro.layer_operands(block_attn, grid_attn, regs, cond,
+                                         dtype)
+        before = av.layer_launches
+        with pytest.raises(ValueError):
+            av.maxvit_layer_attention(x, r, ob, og, repro.WIN,
+                                      cluster=cluster)
+        assert av.layer_launches == before
+
+
+@pytest.mark.parametrize("bw,rate", [(9000, 0.0), (1440, 0.1)])
+def test_kernel_strip_path_matches_plain_at_main_path_windows(bw, rate):
+    """K1's strip path (bf16, the flagship layer: dim 128, 32 heads x 32,
+    window 7, FiLM on) at the evaluation's Bw 9,000 and the training's Bw
+    1,440 with dropout, against the plain version given the same keep
+    mask; a second launch is bit-identical."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    m, xt, ct, _, _ = chip_smoke.kernel_case(32, 32, 128, True, bw, 0.0, dev,
+                                             torch.bfloat16, 7)
+    bias_idx = relative_position_indices(7, 4, device=dev)
+    mask = (keep_mask(77, bw, 32, 53, rate, device=dev) if rate else None)
+    before = cuda_attn.launches
+    with torch.inference_mode():
+        ref = tattn.attention(m, xt, ct, bias_idx, windows_per_sample=30,
+                              dropout_mask=mask)
+        ours = cuda_attn.window_attention(m, xt, ct, bias_idx,
+                                          windows_per_sample=30, seed=77,
+                                          dropout_rate=rate)
+        again = cuda_attn.window_attention(m, xt, ct, bias_idx,
+                                           windows_per_sample=30, seed=77,
+                                           dropout_rate=rate)
+    torch.cuda.synchronize()
+    assert cuda_attn.launches == before + 2
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "K1")
+    assert err <= TOL[torch.bfloat16] * scale, err
 
 
 def test_maxvit_layer_attention_rejects_maps_the_windows_do_not_tile():

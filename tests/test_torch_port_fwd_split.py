@@ -237,13 +237,15 @@ def test_fwd_sections_patches_every_section():
     single build, the one-CTA build's launch bound, doubled weight buffers
     and whole-head prefetch with no wait before the first barrier;
     and the first design's eight stamps, which it finds in the first
-    design's kernel that the committed source keeps for the f32 path."""
+    design's kernel that the committed source keeps for the f32 path.  The
+    strip path's body lives in its own header, which the tool inlines."""
     from vit_grid_model_tpu_torch.repros import fwd_sections
 
     fwd = fwd_sections.SOURCE.read_text()
     body = (fwd_sections.SOURCE.parent / fwd_sections.BODY).read_text()
     assert fwd_sections.is_strip_design(fwd)
-    v = fwd_sections.strip_variants(fwd)
+    v = fwd_sections.strip_variants(fwd_sections.inline_header(
+        fwd, fwd_sections.SOURCE.parent / fwd_sections.STRIPS))
     assert set(v) == {"plain", "stamp", "single", "one_cta"}
     assert v["stamp"].count("STAMP(") == len(fwd_sections.SECTIONS)
     assert v["single"].count("mma_hi_only(") == 4   # its definition, 3 calls

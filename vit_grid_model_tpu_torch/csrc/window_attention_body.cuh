@@ -1,5 +1,6 @@
-// The per-window body of the fused window-attention forward, shared by K1
-// (window_attention_fwd.cu, one window per CTA) and the MaxViT layer
+// The per-window body of the fused window-attention forward's first design
+// (f32, and bf16 off the strip path of window_attention_strips.cuh), shared
+// by K1 (window_attention_fwd.cu, one window per CTA) and the MaxViT layer
 // megakernel (maxvit_layer_attention.cu, R7, a cluster per sample-lead):
 // the shared-memory plan of one 64-row window tile, the LayerNorm + FiLM
 // of its rows, and the attention of every head into an f32 output sum.

@@ -14,7 +14,8 @@ CUDA kernels under ``csrc/`` and their launch counters.
   around the kernel is stock PyTorch (cuBLAS), as the repro leaves it to
   XLA;
 * ``maxvit_layer_attention`` (``maxvit_layer_attention.cu``): R7, one
-  MaxViT layer's block and grid attention in one cluster launch;
+  MaxViT layer's block and grid attention in one cluster launch, on K1's
+  strip body in bf16;
 * ``crosshead_norm_attention`` (``crosshead_norm_attention.cu``): R3, R4's
   structure with a group's q/k norms from one product with a 0/1
   indicator;
@@ -308,11 +309,16 @@ def staged_attention(x: Tensor, wqkv: Tensor, bias: Tensor) -> Tensor:
 
 
 def maxvit_layer_attention(x_map: Tensor, regs: Tensor, ops_block,
-                           ops_grid, window_size: int) -> Tensor:
+                           ops_grid, window_size: int,
+                           cluster: Optional[int] = None) -> Tensor:
     """R7: one MaxViT layer's block attention, register mean and grid
     attention of the (S, H, W, dim) maps, with the residuals, in one
     launch; the arguments of ``ops/attention_variants.py::
-    maxvit_layer_attention``."""
+    maxvit_layer_attention``.  ``cluster``: the CTAs a sample-lead on the
+    strip design (bf16, dim and dim_head multiples of 16, dim <= 128,
+    dim_head <= 32), a divisor of the window count up to 8; None takes the
+    kernel's default.  The strip design keeps the block stage's map in an
+    f32 scratch map of x_map's shape, allocated here."""
     if x_map.device.type == "cpu":
         return plain.maxvit_layer_attention(x_map, regs, ops_block, ops_grid,
                                             window_size)
@@ -335,19 +341,24 @@ def maxvit_layer_attention(x_map: Tensor, regs: Tensor, ops_block,
     is_bf16 = int(dt == torch.bfloat16)
     lib = library.load()
     if lib.vgm_maxvit_layer_attention_cluster(h, w, window_size, nr, dim, dh,
-                                              is_bf16) == 0:
+                                              is_bf16, cluster or 0) == 0:
         raise ValueError(f"{name}: map {h}x{w}, window {window_size}, {nr} "
-                         f"registers, dim={dim}, dim_head={dh} out of the "
-                         "kernel's range (windows must tile the map, a "
-                         "window hold <= 64 tokens, and a cluster of <= 16 "
-                         "CTAs hold the map)")
+                         f"registers, dim={dim}, dim_head={dh}, cluster "
+                         f"{cluster} out of the kernel's range (windows must "
+                         "tile the map, a window hold <= 64 tokens, and a "
+                         "cluster of <= 16 CTAs hold the map; a cluster size "
+                         "is chosen only in bf16 with dim and dim_head "
+                         "multiples of 16, dim <= 128, dim_head <= 32, and "
+                         "divides the windows, up to 8)")
+    scratch = torch.empty(lib.vgm_maxvit_layer_attention_scratch_floats(
+        s, h, w, dim, dh, is_bf16), dtype=f32, device=dev)
     out = torch.empty_like(x_map)
     library.check(lib.vgm_maxvit_layer_attention(
         x_map.data_ptr(), regs.data_ptr(),
         *(t.data_ptr() for t in ops_block[:7]),
-        *(t.data_ptr() for t in ops_grid[:7]), out.data_ptr(), s, h, w,
-        window_size, nr, dim, heads, dh, is_bf16, library.stream(x_map)),
-        name)
+        *(t.data_ptr() for t in ops_grid[:7]), scratch.data_ptr(),
+        out.data_ptr(), s, h, w, window_size, nr, dim, heads, dh, is_bf16,
+        cluster or 0, library.stream(x_map)), name)
     global layer_launches
     layer_launches += 1
     return out

@@ -103,7 +103,7 @@ def load() -> ctypes.CDLL:
         lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
         lib.vgm_fused_mbconv.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
         lib.vgm_perhead_attention.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-        lib.vgm_maxvit_layer_attention.argtypes = ([ptr] * 17 + [i32] * 9
+        lib.vgm_maxvit_layer_attention.argtypes = ([ptr] * 18 + [i32] * 10
                                                    + [ptr])
         lib.vgm_headmajor_attention.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.vgm_stacked_softmax_attention.argtypes = ([ptr] * 4 + [i32] * 8
@@ -136,10 +136,12 @@ def load() -> ctypes.CDLL:
         lib.vgm_outproj_attention_smem_bytes.restype = ctypes.c_long
         lib.vgm_headpack_attention_smem_bytes.argtypes = [i32] * 7
         lib.vgm_headpack_attention_smem_bytes.restype = ctypes.c_long
-        lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 7
+        lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 8
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
-        lib.vgm_maxvit_layer_attention_active_clusters.argtypes = [i32] * 7
-        lib.vgm_maxvit_layer_attention_active_clusters.restype = ctypes.c_int
+        lib.vgm_maxvit_layer_attention_occupancy.argtypes = [i32] * 9
+        lib.vgm_maxvit_layer_attention_occupancy.restype = ctypes.c_int
+        lib.vgm_maxvit_layer_attention_scratch_floats.argtypes = [i32] * 6
+        lib.vgm_maxvit_layer_attention_scratch_floats.restype = ctypes.c_long
         lib.vgm_window_attention_bwd_grad_floats.argtypes = [i32] * 4
         lib.vgm_window_attention_bwd_slot_floats.argtypes = [i32] * 5
         lib.vgm_window_attention_bwd_scratch_elems.argtypes = [i32] * 6

@@ -28,7 +28,8 @@ head's n x n products on CUDA cores through a 64 x 64 shared score tile,
 in the body; e.g. from ``git show e911722:...``) is built plain and
 stamped, an earlier strip design plain only.  The plain builds run in
 turns beside the package's own K1: first, second, ..., then reversed.  It
-prints each variant's ms a call, each section's share of the stamped
+prints whether each variant's output is bit-identical to the package
+K1's, each variant's ms a call, each section's share of the stamped
 cycles and the split into parts: LayerNorm + FiLM, the qkv product and the
 QK-RMSNorm (one section in the strip design, two in the first), the n x n
 section (scores, softmax with the dropout hash, P.v), the out-projection
@@ -57,6 +58,7 @@ from vit_grid_model_tpu_torch.repros.common import card_line, cuda_ms
 BUILD = library.LIBRARY.parent.parent / "fwd_sections"
 SOURCE = library.CSRC / "window_attention_fwd.cu"
 BODY = "window_attention_body.cuh"
+STRIPS = "window_attention_strips.cuh"
 N, DIM, HEADS, DIM_HEAD = 53, 128, 32, 32
 WINDOWS_PER_SAMPLE = 30
 SEED, DROPOUT_SEED = 0, 2 ** 30 + 12345
@@ -110,6 +112,16 @@ def is_strip_design(fwd: str) -> bool:
     return "window_attention_fwd_strips" in fwd
 
 
+def inline_header(text: str, header: Path) -> str:
+    """``text`` with its include of ``header`` replaced by the header's own
+    text (its ``#pragma once`` and its include of the first design's body
+    dropped: ``text`` includes that itself)."""
+    body = header.read_text()
+    body = body.replace("#pragma once\n", "").replace(
+        f'#include "{BODY}"\n', "")
+    return _replace(text, [(f'#include "{header.name}"\n', body)])
+
+
 def first_variants(fwd: str, body: str) -> Dict[str, Tuple[str, str]]:
     """The plain and stamped builds of the first design: {variant: (fwd
     source, body source)}; each fwd source includes its own body copy."""
@@ -158,25 +170,26 @@ def first_variants(fwd: str, body: str) -> Dict[str, Tuple[str, str]]:
 
 
 def strip_variants(fwd: str) -> Dict[str, str]:
-    """The plain, stamped and one-product builds of the strip design, and
-    its one-CTA build when it stages its weights.  The
-    n x n section ends at the strip's named barrier; the stamped build adds
-    a block barrier there (every strip is live at n = 53)."""
+    """The plain, stamped and one-product builds of the strip design (its
+    strip body inlined), and its one-CTA build.  The n x n section ends at
+    the strip's named barrier; the stamped build adds a block barrier there
+    (every strip is live at n = 53).  The body runs once a CTA, so its
+    stamps open and flush there."""
     f = fwd.split("\n")
-    kernel = _find(f, "    window_attention_fwd_strips(")
+    body = _find(f, "__device__ __forceinline__ void attend_window_strips(")
     after = {
-        _find(f, "extern __shared__", kernel): _OPEN,
+        _find(f, "    Epilogue epilogue) {", body): _OPEN,
         _find(f, "  __syncthreads();", _find(f, "layer_norm_rows<bf16, true>(",
-                                             kernel)): "STAMP(0);",
+                                             body)): "STAMP(0);",
         _find(f, "    __syncthreads();",
-              _find(f, "cp_async_wait<0>();  // Wout_h has landed", kernel)):
+              _find(f, "cp_async_wait<0>();  // Wout_h has landed", body)):
             "STAMP(1);",
-        _find(f, "strip_barrier(1 + strip);", kernel):
+        _find(f, "strip_barrier(1 + strip);", body):
             "      __syncthreads(); STAMP(2);",
         _find(f, "    __syncthreads();", _find(f, "strip_barrier(1 + strip);",
-                                             kernel)): "STAMP(3);",
-        # the kernel's last line, before its closing brace
-        f.index("}", kernel) - 1: "  __syncthreads(); STAMP(4);\n" + _FLUSH,
+                                             body)): "STAMP(3);",
+        # the body's last line (its epilogue, the store), before its brace
+        f.index("}", body) - 1: "  __syncthreads(); STAMP(4);\n" + _FLUSH,
     }
     stamped = _insert(f, after)
     anchor = "using bf16 = __nv_bfloat16;\n"
@@ -235,6 +248,7 @@ def variants(fwd_path: Path) -> Dict[str, Tuple[str, str]]:
     fwd = fwd_path.read_text()
     body = (fwd_path.parent / BODY).read_text()
     if fwd_path.resolve() == SOURCE.resolve():
+        fwd = inline_header(fwd, fwd_path.parent / STRIPS)
         return {k: (v, body) for k, v in strip_variants(fwd).items()}
     if is_strip_design(fwd):  # an earlier strip design: timed as it is
         return {"plain": (fwd, body)}
@@ -345,10 +359,12 @@ def main(argv=None) -> Dict[str, object]:
                      for name, path in libs.items()}
         ref = cuda_attn.window_attention_fwd(x, k, DROPOUT_SEED, rate)
         for name, v in variants_.items():
-            err = ((v().float() - ref.float()).abs().max()
+            out = v()
+            err = ((out.float() - ref.float()).abs().max()
                    / ref.float().abs().max()).item()
-            print(f"{case}: {name} max|d| / max|package K1| = {err:.3e}",
-                  flush=True)
+            same = "; bit-identical" if torch.equal(out, ref) else ""
+            print(f"{case}: {name} max|d| / max|package K1| = {err:.3e}"
+                  f"{same}", flush=True)
         runs: Dict[str, object] = {
             "package K1": lambda: cuda_attn.window_attention_fwd(
                 x, k, DROPOUT_SEED, rate)}

@@ -13,7 +13,11 @@ plain version:
   (``ops/cuda/attention.py::window_attention``) with ``ops/window.py``'s
   partitions, the residuals and the register mean between them, as
   ``repro_megakernel.py::build_baseline`` does;
-* ``kernel``: ``ops/cuda/attention_variants.py::maxvit_layer_attention``.
+* ``kernel``: ``ops/cuda/attention_variants.py::maxvit_layer_attention``
+  at its default cluster size, and ``kernel C=c`` at each size of the
+  sweep (``SWEEP``), each beside its occupancy line: the cluster size,
+  the clusters the card holds at once and the CTAs they make, against the
+  CTA slots of the card's SMs.
 
 The two attentions are the port's ``Attention`` modules with weights drawn
 from a numpy seed (``core/weights.py::seed_module``); ``layer_operands``
@@ -49,6 +53,7 @@ H, WD, WIN, NR = 42, 35, 7, 4
 DIM, HEADS, DIM_HEAD, COND = 128, 32, 32, 32
 CASES = {"repro S=96 (B=8 x 12 leads)": 96,
          "flagship eval S=300 (B=25 x 12 leads)": 300}
+SWEEP = (2, 3, 5, 6)   # cluster sizes timed beside the default
 # max|kernel - plain| / max|plain|
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -138,22 +143,27 @@ def bound_ms(s: int, dtype: torch.dtype) -> Tuple[float, str]:
     return common.bound_ms(ops, moved, dtype)
 
 
-def occupancy(dtype: torch.dtype) -> str:
-    """The kernel's cluster shape at the flagship layer and how many of its
-    clusters the card holds at once (CUDA's occupancy query)."""
+def occupancy(dtype: torch.dtype, cluster: int = 0) -> str:
+    """The kernel's cluster shape at the flagship layer with ``cluster``
+    asked for (0: the default), how many of its clusters the card holds
+    at once (CUDA's occupancy query) and the CTA slots of its SMs."""
     lib = library.load()
-    shape = (H, WD, WIN, NR, DIM, DIM_HEAD, int(dtype == torch.bfloat16))
+    shape = (H, WD, WIN, NR, DIM, DIM_HEAD, int(dtype == torch.bfloat16),
+             cluster)
     size = lib.vgm_maxvit_layer_attention_cluster(*shape)
-    active = lib.vgm_maxvit_layer_attention_active_clusters(*shape)
+    active = lib.vgm_maxvit_layer_attention_occupancy(*shape, 0)
+    per_sm = lib.vgm_maxvit_layer_attention_occupancy(*shape, 1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (f"clusters of {size} CTAs (one sample-lead each), {active} "
-            f"resident at once: {active * size} of {sms} SMs busy")
+            f"resident at once: {active * size} CTAs of the {per_sm * sms} "
+            f"slots of {sms} SMs at {per_sm} CTAs an SM")
 
 
 def run(s: int, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-        iters: int = 10) -> Dict[str, Tuple[float, float]]:
-    """Time the plain version, the two-K1 baseline and the kernel at S =
-    ``s``: {name: (ms, max rel vs plain)}.  Raises when the kernel misses
+        iters: int = 10, sweep=()) -> Dict[str, Tuple[float, float]]:
+    """Time the plain version, the two-K1 baseline and the kernel (at its
+    default cluster, then at each cluster size in ``sweep``) at S = ``s``:
+    {name: (ms, max rel vs plain)}.  Raises when a kernel misses
     ``TOLERANCE``."""
     dev = common.require_cuda()
     block_attn, grid_attn, regs = (t.to(dev) for t in layer(seed))
@@ -164,18 +174,25 @@ def run(s: int, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
         "baseline": lambda: baseline(x, block_attn, grid_attn, regs, cond),
         "kernel": lambda: maxvit_layer_attention(x, r, ops_b, ops_g, WIN),
     }
+    for c in sweep:
+        versions[f"kernel C={c}"] = (
+            lambda c=c: maxvit_layer_attention(x, r, ops_b, ops_g, WIN,
+                                               cluster=c))
     out = {}
     with torch.inference_mode():
         ref = versions["plain"]()
         for name, fn in versions.items():
+            if name.startswith("kernel C="):
+                print(f"  {occupancy(dtype, int(name[9:]))}", flush=True)
             out[name] = common.run_repro(
                 f"S={s} {str(dtype).split('.')[-1]} {name}", fn, ref,
                 iters=iters, warmup=2)
     del ref
     torch.cuda.empty_cache()
-    if not out["kernel"][1] <= TOLERANCE[dtype]:
-        raise AssertionError(f"S={s} kernel: max rel {out['kernel'][1]} "
-                             f"above {TOLERANCE[dtype]}")
+    for name, (_, rel) in out.items():
+        if name.startswith("kernel") and not rel <= TOLERANCE[dtype]:
+            raise AssertionError(f"S={s} {name}: max rel {rel} above "
+                                 f"{TOLERANCE[dtype]}")
     return out
 
 
@@ -189,11 +206,12 @@ def main() -> Dict[int, Dict[str, Tuple[float, float]]]:
         print(f"=== {label}: {H}x{WD} map, dim {DIM}, {HEADS} heads x "
               f"{DIM_HEAD}, window {WIN}, {NR} registers, bf16 ===",
               flush=True)
-        results[s] = run(s)
+        results[s] = run(s, sweep=SWEEP)
         bound, by = bound_ms(s, torch.bfloat16)
         r = results[s]
         print(f"bound {bound:.4f} ms ({by}); kernel / baseline "
-              f"{r['kernel'][0] / r['baseline'][0]:.3f}", flush=True)
+              f"{r['kernel'][0] / r['baseline'][0]:.3f}; kernel / bound "
+              f"{r['kernel'][0] / bound:.1f}", flush=True)
     print(json.dumps({"card": card, "ms": {
         s: {k: v[0] for k, v in r.items()} for s, r in results.items()}}))
     return results
