@@ -71,10 +71,15 @@ models, SimVP and the utilities.  Phases:
    structure (ws_2pass_pwout) on the same cases, the other R12/R13
    structures at Bw 2,880 in bf16 and Bw 40 in f32 (f32 output, held to
    1e-4), R2's casts at Bw 2,880 and in the diverging cases, R8's six
-   (n_pad, kfold) cases at Bw 2,880, each bit-identical on a second launch;
-   then the four repros' entry points, each of which must launch its
-   kernel, with kernel, plain, R4-, R1- and unfused (R1's kernel + cuBLAS)
-   times;
+   (n_pad, kfold) cases at Bw 2,880, each bit-identical on a second launch,
+   each line with the design the kernel's launches took (bf16 at the
+   repros' widths the strip design on K1's strip body, f32 and dim_head 64
+   the first design); then the four repros' entry points, each of which
+   must launch its kernel (the out-projection repros only through the
+   strip design), with kernel, plain, R4-, R1- and unfused (R1's kernel +
+   cuBLAS) times, each time over the bound, the design's occupancy line,
+   and a sweep of 1, 2, 4, 8, 16 and 32 windows a CTA at Bw 2,880 and
+   9,000;
 12. R5 and R6: the head-pack kernel at K = 2, 4 and 8 heads a pack, one
    pass and two, 8 and 16 windows a CTA, vs plain (bf16 at Bw 2,880, f32
    with an f32 output, a ragged Bw, every odd head's scores 200 below in
@@ -1805,6 +1810,11 @@ def variants_vs_plain(dev):
     return report
 
 
+# the out-projection kernel's bf16 case off the strip design's widths
+# (dim_head 64: the first design), fewer windows than a CTA takes
+OUTPROJ_FIRST_CASES = [("dim_head 64", 5, 9, 32, 2, 64, "bfloat16", 0.0)]
+
+
 def outproj_routes(x, wqkv, bias, wout, heads, dh, dtype_name, bw,
                    diverging):
     """Phase 11a's routes of the out-projection kernel on one input:
@@ -1864,13 +1874,18 @@ def crosshead_outproj_vs_plain(dev):
 
     def check(label, route, kernel, ref_call, tol, bw):
         ref = ref_call()
+        before = dict(av.outproj_route_launches)
         ours = kernel()
         again = kernel()
         torch.cuda.synchronize()
         err, scale = kernel_errors(ours, again, ref, f"{label} {route}")
+        # the out-projection kernel's design, as its wrapper counted it
+        took = [d for d, c in av.outproj_route_launches.items()
+                if c > before.get(d, 0)]
+        design = f"; {took[0]} design" if took else ""
         print(f"{label} {route:30s}: max|d|={err:.3e} max|plain|={scale:.3e} "
               f"rel={err / scale:.3e} (tol {tol:g}); second launch "
-              "bit-identical", flush=True)
+              f"bit-identical{design}", flush=True)
         if not err <= tol * scale:
             raise AssertionError(f"{label} {route}: kernel differs from "
                                  f"plain by {err}")
@@ -1896,6 +1911,19 @@ def crosshead_outproj_vs_plain(dev):
                 check(label, route, kernel, ref_call, tol, bw)
         del x, wqkv, bias, wout
         torch.cuda.empty_cache()
+    # bf16 off the strip design's widths: the first design
+    for name, bw, n, dim, heads, dh, dtype_name, offset in OUTPROJ_FIRST_CASES:
+        x, wqkv, bias, wout = ws.inputs(bw, getattr(torch, dtype_name), dev,
+                                        SEED, n=n, dim=dim, heads=heads,
+                                        dim_head=dh, out_dim=dim)
+        label = f"{name:15s} {dtype_name:8s} Bw={bw:4d}"
+        with torch.inference_mode():
+            for route, (kernel, ref_call) in outproj_routes(
+                    x, wqkv, bias, wout, heads, dh, dtype_name, bw,
+                    False).items():
+                check(label, route, kernel, ref_call,
+                      TOLERANCE[dtype_name], bw)
+        del x, wqkv, bias, wout
     for n_pad in r8.N_PADS:
         x, wqkv, bias, wout = ws.inputs(repro_bw, torch.bfloat16, dev, SEED,
                                         n=n_pad)
@@ -2721,18 +2749,27 @@ def run(root: str) -> int:
     def outproj_count(two_pass, perhead, score=False, agg=False, wpc=8):
         return av.outproj_launches[(two_pass, perhead, score, agg, wpc)]
 
+    def strip_only(counts):
+        """The repro's launches by key, and its strip-design launches;
+        raises when one took the first design."""
+        if av.outproj_route_launches["first"]:
+            raise AssertionError(f"{av.outproj_route_launches['first']} "
+                                 "out-projection launches took the first "
+                                 "design at the repros' bf16 widths")
+        return {**counts, "strip design": av.outproj_route_launches["strip"]}
+
     r3_launches, r3_results = repro_path(
         repro_r3, [av],
         lambda: {"crosshead_norm_attention": av.crosshead_launches})
-    ws_launches, ws_results = repro_path(repro_ws, [av], lambda: {
+    ws_launches, ws_results = repro_path(repro_ws, [av], lambda: strip_only({
         name: outproj_count(tp, pw)
-        for name, (_, tp, pw) in repro_ws.VARIANTS.items()})
-    r2_launches, r2_results = repro_path(repro_r2, [av], lambda: {
+        for name, (_, tp, pw) in repro_ws.VARIANTS.items()}))
+    r2_launches, r2_results = repro_path(repro_r2, [av], lambda: strip_only({
         name: outproj_count(True, True, score, agg)
-        for name, (score, agg) in repro_r2.CASTS.items()})
-    r8_launches, r8_results = repro_path(repro_r8, [av], lambda: {
+        for name, (score, agg) in repro_r2.CASTS.items()}))
+    r8_launches, r8_results = repro_path(repro_r8, [av], lambda: strip_only({
         f"kfold={k}": outproj_count(True, True, wpc=repro_r8.BLK * k)
-        for k in repro_r8.KFOLDS})
+        for k in repro_r8.KFOLDS}))
 
     phase("12a", "R5/R6 head-pack kernel vs plain on the card")
     headpack_err = headpack_vs_plain(dev)

@@ -18,7 +18,10 @@ f32 1e-4 and bf16 6e-2 (``chip_smoke.BWD_TOLERANCE``), K3-w alone 1e-4
 (f32 sums in another order) and bit-identical on a second launch; the fused
 MBConv as the forward, as are R1/R14, R7, R4, R9, R10, R11, R3, the out-projection
 kernel and the head-pack kernel (whose f32 cases take an f32 output), whose
-second launches are bit-identical.
+second launches are bit-identical; the out-projection kernel's launches
+also took the design its route names (the strip design in bf16 at
+dim_head <= 32, the first in f32 and at dim_head 64), and its strip
+design's output does not depend on the windows a CTA.
 The keep mask is bit-equal.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
@@ -593,10 +596,19 @@ OUTPROJ_ROUTES = {
     "bf16_both": (True, True, True, True, True)}
 
 
+def _outproj_design(dtype, dim_head):
+    """The design the out-projection kernel takes at these tests' widths
+    (dim and out_dim <= 128, multiples of 16): K1's strip design in bf16 at
+    dim_head <= 32, the first design in f32 and at dim_head 64."""
+    return ("strip" if dtype == torch.bfloat16 and dim_head <= 32
+            else "first")
+
+
 def _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route,
                   windows_per_cta=8):
     """The out-projection kernel (two launches) against its plain version
-    with the route's casts; the output in x's dtype."""
+    with the route's casts; the output in x's dtype.  Both launches took
+    the design ``_outproj_design`` names, as the wrapper counts it."""
     from vit_grid_model_tpu_torch.ops.attention_variants import (
         outproj_attention)
     from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
@@ -611,6 +623,8 @@ def _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route,
     w = weight4(wqkv, heads) if r9 else wqkv
     key = (two_pass, perhead, score, agg, windows_per_cta)
     before = av.outproj_launches[key]
+    design = _outproj_design(dtype, dim_head)
+    by_design = av.outproj_route_launches[design]
     with torch.inference_mode():
         ref = outproj_attention(x, wqkv, bias, wout, heads, dim_head,
                                 bf16_score=score, bf16_agg=agg,
@@ -621,6 +635,8 @@ def _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route,
             out_dtype=dtype) for _ in range(2))
     torch.cuda.synchronize()
     assert av.outproj_launches[key] == before + 2
+    assert av.outproj_route_launches[design] == by_design + 2, design
+    assert av.outproj_route(n, dim, dim_head, dim, dtype) == design
     assert ours.dtype == dtype and tuple(ours.shape) == (bw, n, dim)
     err, scale = chip_smoke.kernel_errors(ours, again, ref, route)
     assert err <= TOL[dtype] * scale, err
@@ -633,7 +649,8 @@ def _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route,
 def test_outproj_attention_matches_plain(bw, n, dim, heads, dim_head, offset,
                                          dtype, route):
     """R12, R13's variants and R2's casts against the plain version, n 64
-    (R8's n_pad) among the cases."""
+    (R8's n_pad) among the cases; bf16 on the strip design (dim_head 64
+    and f32 on the first)."""
     _need_cuda()
     _outproj_case(bw, n, dim, heads, dim_head, offset, dtype, route)
 
@@ -642,10 +659,43 @@ def test_outproj_attention_matches_plain(bw, n, dim, heads, dim_head, offset,
 @pytest.mark.parametrize("windows_per_cta", [8, 16, 32])
 def test_outproj_attention_at_r8_windows_per_cta(windows_per_cta, n):
     """R8's kfold 1, 2, 4 as 8, 16, 32 windows a CTA; Bw 37 leaves a
-    ragged last CTA at each."""
+    ragged last CTA at each (the strip design)."""
     _need_cuda()
     _outproj_case(37, n, 128, 32, 32, 0.0, torch.bfloat16, "ws_2pass_pwout",
                   windows_per_cta)
+
+
+@pytest.mark.parametrize("cast", ["ws_2pass_pwout", "bf16_score",
+                                  "bf16_agg", "bf16_both"])
+def test_outproj_strip_output_does_not_depend_on_windows_per_cta(cast):
+    """The strip design runs each window alone through the body, so at Bw
+    37 (a ragged last CTA at each setting) its output at 1, 2, 4, 8, 16 and
+    32 windows a CTA is bit-identical, and each setting's second launch
+    too."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    x, wqkv, bias, wout = ws.inputs(37, torch.bfloat16, torch.device("cuda"),
+                                    1)
+    _, two_pass, perhead, score, agg = OUTPROJ_ROUTES[cast]
+    w4 = weight4(wqkv, 32)
+
+    def call(wpc):
+        return av.outproj_attention(x, w4, bias, wout, two_pass=two_pass,
+                                    perhead_wout=perhead, bf16_score=score,
+                                    bf16_agg=agg, windows_per_cta=wpc)
+
+    before = av.outproj_route_launches["strip"]
+    with torch.inference_mode():
+        first = call(1)
+        for wpc in (1, 2, 4, 8, 16, 32):
+            assert torch.equal(call(wpc), first), wpc
+            assert torch.equal(call(wpc), first), wpc
+    torch.cuda.synchronize()
+    assert av.outproj_route_launches["strip"] == before + 13
+    assert bool(torch.isfinite(first.float()).all())
 
 
 def test_crosshead_and_outproj_reject_shapes_out_of_range():

@@ -249,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Bytes of shared memory a CTA of the strip design takes: the strip plan,
 // then the register sums and the register mean, (nr, dim) f32 each.
 size_t strip_smem(int dim, int dh, int nr) {
-  return make_strip_plan(dim, dh).bytes +
+  return make_strip_plan(dim, dh, dim).bytes +
          2 * align128(static_cast<size_t>(nr) * dim * sizeof(float));
 }
 
@@ -278,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nwin = nx * ny;
   const int wpc = nwin / csize;
   const int n = nr + win * win;
-  const StripPlan plan = make_strip_plan(dim, dh);
+  const StripPlan plan = make_strip_plan(dim, dh, dim);
   // regsum: this CTA's block windows' register rows' sum (nr, dim); regmean:
   // the mean over the sample-lead's windows
   float* regsum = reinterpret_cast<float*>(smem + plan.bytes);
@@ -317,9 +317,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     };
     attend_window_strips(
-        smem, plan, block_load, n, dim, blk.gamma + film, blk.beta + film, 1,
-        blk.wqkv, blk.qg, blk.kg, blk.wout, blk.bias, heads, dh, 0, 0u, 0u,
-        1.f,
+        smem, plan,
+        norm_rows(block_load, blk.gamma + film, blk.beta + film, 1), n, dim,
+        blk.wqkv, blk.qg, blk.kg, blk.wout, blk.bias, heads, dh, dim, 0, 0u,
+        0u, 1.f,
         block_store);
   }
   cluster.sync();  // every pixel of the scratch and every sum is final
@@ -356,9 +357,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       *reinterpret_cast<uint32_t*>(omap + e) = pack_bf16(v0 + p.x, v1 + p.y);
     };
     attend_window_strips(
-        smem, plan, grid_load, n, dim, grd.gamma + film, grd.beta + film, 1,
-        grd.wqkv, grd.qg, grd.kg, grd.wout, grd.bias, heads, dh, 0, 0u, 0u,
-        1.f,
+        smem, plan,
+        norm_rows(grid_load, grd.gamma + film, grd.beta + film, 1), n, dim,
+        grd.wqkv, grd.qg, grd.kg, grd.wout, grd.bias, heads, dh, dim, 0, 0u,
+        0u, 1.f,
         grid_store);
   }
   cluster_wait();  // no CTA leaves while a peer may still read its sums

@@ -30,7 +30,36 @@
 // Bw = 2,880 on the bf16 peak against 0.025 ms for the bytes; at n = 64,
 // 83.89 MFLOP, 0.244 ms (repros/weightsliced_variants.py::bound_ms).
 //
-// What this design does about it.  The qkv runs from per-head weight
+// Two designs.  The route (vgm_outproj_attention_route) is the strip
+// design for bf16 with dim, dh and out_dim multiples of 16, dim <= 128, dh
+// <= 32 and out_dim <= 128 (every repro shape), the first design for f32
+// and for bf16 off those widths (dh 64, dim or out_dim > 128).
+//
+// The strip design (outproj_attention_strips, since the first design ran
+// at one CTA an SM with the n x n products on CUDA cores at ~70x its
+// bound) is K1's strip body (window_attention_strips.cuh) with this
+// function's choices: x's bf16 rows copied into the tile by cp.async (no
+// LayerNorm or FiLM; rows n..63 zeroed once a CTA, so a padded q, k or v
+// row is 0 and never NaN), qn and kn without sqrt(dh) or a gain, Wout_h
+// (dh x out_dim), and R2's casts as the n x n products' precision: without
+// a cast S (or O) takes the split operands (hi.hi + hi.lo + lo.hi, f32
+// sums), with bf16_score (bf16_agg) the high parts alone, one mma a tile;
+// the high part is the round-to-nearest bf16 of qn, kn (P, v), which is
+// the repro's cast.  Every product runs on mma.sync m16n8k16 in warp-owned
+// 16-row strips, each head's Wqkv_h and Wout_h staged by cp.async ahead of
+// use, o_h rounded to bf16 before the out-projection, y in registers
+// until the epilogue stores rows < n in out_dtype: 84,480 B a CTA at the
+// repros' widths, two CTAs an SM (__launch_bounds__(kThreads, 2)).  A CTA
+// runs windows_per_cta consecutive windows one after another through the
+// body (R8's kfold chunks run in turn, as the TPU program runs them).  In
+// this design R12/R13's structures are one computation: y summed over the
+// heads in f32 mma accumulators is both the concat product's k-loop and
+// the per-head out-products summed in f32, and each row's softmax over a
+// two-pass stack is each head's own softmax; so two_pass and perhead_wout
+// (group and cat_heads) select nothing here, and the wrapper still takes
+// and counts them.
+//
+// The first design.  The qkv runs from per-head weight
 // slices, (heads, dim, 3dh), R9's layout.  R13, R2 and R8 hand their (3,
 // heads, dim, dh) weight, R12 R1's (dim, 3hd) one; the wrapper lays both
 // out once.  R12's one wide qkv product does not fit a window here (56 x
@@ -91,10 +120,10 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "window_attention_strips.cuh"
 
 namespace {
 
-constexpr int kMaxDimHead = 64;
 constexpr int kMaxGroup = 8;
 
 struct OutprojPlan {
@@ -441,10 +470,138 @@ int launch(const void* x, const void* wqkv, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the strip design: the body in window_attention_strips.cuh ----
+
+bool strip_route(int dim, int dh, int out_dim, int is_bf16) {
+  return is_bf16 && dim % 16 == 0 && dh % 16 == 0 && out_dim % 16 == 0 &&
+         dim <= kMaxStripDim && dh <= kMaxStripDimHead &&
+         out_dim <= kMaxStripDim;
+}
+
+template <bool kSplitScore, bool kSplitAgg>
+__global__ void __launch_bounds__(kThreads, 2)
+    outproj_attention_strips(const bf16* __restrict__ x,
+                             const bf16* __restrict__ wqkv,
+                             const float* __restrict__ bias,
+                             const bf16* __restrict__ wout,
+                             void* __restrict__ out, int bw, int n, int dim,
+                             int heads, int dh, int out_dim,
+                             int windows_per_cta, int out_bf16) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const StripPlan plan = make_strip_plan(dim, dh, out_dim);
+  // rows n..63 of the tile stay zero: the copies write rows < n only
+  bf16* xs = reinterpret_cast<bf16*>(smem + plan.xs);
+  for (int e = threadIdx.x; e < (kRows - n) * plan.ldx; e += kThreads)
+    xs[n * plan.ldx + e] = __float2bfloat16(0.f);
+  const int w0 = blockIdx.x * windows_per_cta;
+  const int nw = min(windows_per_cta, bw - w0);  // the last CTA is ragged
+  for (int wi = 0; wi < nw; ++wi) {
+    const auto store = [&](int r, int c, float v0, float v1) {
+      const size_t e =
+          (static_cast<size_t>(w0 + wi) * n + r) * out_dim + c;
+      if (out_bf16)
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + e) =
+            pack_bf16(v0, v1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + e) =
+            make_float2(v0, v1);
+    };
+    attend_window_strips<false, kSplitScore, kSplitAgg>(
+        smem, plan, CopyRows{x + static_cast<size_t>(w0 + wi) * n * dim}, n,
+        dim, wqkv, nullptr, nullptr, wout, bias, heads, dh, out_dim, 0, 0u,
+        0u, 1.f,
+        store);
+  }
+}
+
+// The strip kernel of these casts (a cast product takes no low parts).
+using StripKernel = decltype(&outproj_attention_strips<true, true>);
+
+StripKernel strip_kernel(int bf16_score, int bf16_agg) {
+  if (bf16_score)
+    return bf16_agg ? &outproj_attention_strips<false, false>
+                    : &outproj_attention_strips<false, true>;
+  return bf16_agg ? &outproj_attention_strips<true, false>
+                  : &outproj_attention_strips<true, true>;
+}
+
+int launch_strips(StripKernel kernel, const void* x, const void* wqkv,
+                  const void* bias, const void* wout, void* out, int bw,
+                  int n, int dim, int heads, int dh, int out_dim,
+                  int windows_per_cta, int out_bf16, cudaStream_t stream) {
+  const size_t smem = make_strip_plan(dim, dh, out_dim).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctas = (bw + windows_per_cta - 1) / windows_per_cta;
+  kernel<<<ctas, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bias), static_cast<const bf16*>(wout), out,
+      bw, n, dim, heads, dh, out_dim, windows_per_cta, out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, local bytes a thread, shared memory a CTA and CTAs an SM of
+// `kernel` at `smem` bytes into out[0..3]; 0, or -1 on an error.
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return -1;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
+}
+
 }  // namespace
 
-// Shared memory one CTA of the kernel takes at these widths, G (0: one
-// pass) and C (0: per-head out-projection).
+// 1 when a launch at these widths takes the strip design, 0 when it takes
+// the first design.
+extern "C" int vgm_outproj_attention_route(int n, int dim, int dh,
+                                           int out_dim, int is_bf16) {
+  return n >= 1 && n <= kRows && strip_route(dim, dh, out_dim, is_bf16);
+}
+
+// The occupancy of the kernel a launch at these widths, G, C and casts
+// takes: out[0..3] = registers, local (spill) bytes a thread, shared
+// memory a CTA, CTAs an SM.  Returns the route (0 first design, 1 strip
+// design), or -1 on an error.
+extern "C" int vgm_outproj_attention_occupancy(int n, int dim, int dh,
+                                               int out_dim, int group,
+                                               int cat_heads, int bf16_score,
+                                               int bf16_agg, int is_bf16,
+                                               int* out) {
+  if (vgm_outproj_attention_route(n, dim, dh, out_dim, is_bf16))
+    return occupancy_of(strip_kernel(bf16_score, bf16_agg),
+                        make_strip_plan(dim, dh, out_dim).bytes, out)
+               ? -1
+               : 1;
+  const int err =
+      is_bf16 ? occupancy_of(outproj_attention_kernel<__nv_bfloat16, true>,
+                             make_outproj_plan<__nv_bfloat16>(
+                                 dim, dh, out_dim, group, cat_heads).bytes,
+                             out)
+              : occupancy_of(outproj_attention_kernel<float, false>,
+                             make_outproj_plan<float>(dim, dh, out_dim,
+                                                      group, cat_heads)
+                                 .bytes,
+                             out);
+  return err ? -1 : 0;
+}
+
+// Shared memory one CTA of the first design takes at these widths, G (0:
+// one pass) and C (0: per-head out-projection).
 extern "C" long vgm_outproj_attention_smem_bytes(int dim, int dh, int out_dim,
                                                  int group, int cat_heads,
                                                  int is_bf16) {
@@ -460,10 +617,11 @@ extern "C" long vgm_outproj_attention_smem_bytes(int dim, int dh, int out_dim,
 // (heads*dh, out_dim) in x's type; out: (bw, n, out_dim), bf16 if out_bf16
 // else f32.  All contiguous.  dim, dh and out_dim are multiples of 16 (dh
 // <= 64), n <= 64; group: heads a two-pass stack (1..8; 0 = one pass);
-// cat_heads: heads a concat out-projection (0 = per head); bf16_score and
-// bf16_agg round those products' operands to bf16 (no-ops for f32).
-// Launches ceil(bw / windows_per_cta) CTAs on `stream` and returns
-// cudaGetLastError() (0 on success).
+// cat_heads: heads a concat out-projection (0 = per head), both read by
+// the first design only; bf16_score and bf16_agg round those products'
+// operands to bf16 (no-ops for f32).  Launches ceil(bw / windows_per_cta)
+// CTAs of the design vgm_outproj_attention_route names on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int vgm_outproj_attention(const void* x, const void* wqkv,
                                      const void* bias, const void* wout,
                                      void* out, int bw, int n, int dim,
@@ -478,6 +636,10 @@ extern "C" int vgm_outproj_attention(const void* x, const void* wqkv,
       group > kMaxGroup || cat_heads < 0 || cat_heads > heads ||
       windows_per_cta < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (strip_route(dim, dh, out_dim, is_bf16))
+    return launch_strips(strip_kernel(bf16_score, bf16_agg), x, wqkv, bias,
+                         wout, out, bw, n, dim, heads, dh, out_dim,
+                         windows_per_cta, out_bf16, st);
   if (is_bf16)
     return launch<__nv_bfloat16, true>(
         x, wqkv, bias, wout, out, bw, n, dim, heads, dh, out_dim, group,

@@ -112,14 +112,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         int windows_per_sample, int has_film, unsigned seed,
         unsigned keep_threshold, float keep_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const StripPlan plan = make_strip_plan(dim, dh);
+  const StripPlan plan = make_strip_plan(dim, dh, dim);
   const int win = blockIdx.x;
   const bf16* xw = x + static_cast<size_t>(win) * n * dim;
   const size_t sample = static_cast<size_t>(win / windows_per_sample) * dim;
   attend_window_strips(
-      smem, plan, [&](int r, int c) { return to_f32(xw[r * dim + c]); }, n,
-      dim, gamma + sample, beta + sample, has_film, wqkv, q_gamma, k_gamma,
-      wout, bias, heads, dh, win, seed, keep_threshold, keep_scale,
+      smem, plan,
+      norm_rows([&](int r, int c) { return to_f32(xw[r * dim + c]); },
+                gamma + sample, beta + sample, has_film),
+      n, dim, wqkv, q_gamma, k_gamma, wout, bias, heads, dh, dim, win, seed,
+      keep_threshold, keep_scale,
       [&](int r, int c, float v0, float v1) {
         // the row's address from the parameters: nothing held across the
         // heads
@@ -156,7 +158,7 @@ int launch_strips(const void* x, const void* gamma, const void* beta,
                   int n, int dim, int heads, int dh, int windows_per_sample,
                   int has_film, unsigned seed, unsigned keep_threshold,
                   float keep_scale, cudaStream_t stream) {
-  const size_t smem = make_strip_plan(dim, dh).bytes;
+  const size_t smem = make_strip_plan(dim, dh, dim).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       window_attention_fwd_strips,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

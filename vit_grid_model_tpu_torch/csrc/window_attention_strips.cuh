@@ -1,23 +1,37 @@
 // The strip body of the window-attention forward on the tensor cores,
-// shared by K1's strip path (window_attention_fwd.cu, one window a CTA)
-// and R7's (maxvit_layer_attention.cu, a cluster of CTAs a sample-lead,
-// each running its windows one after another): the shared-memory plan of
-// one 64-row window tile, and one window's LayerNorm + FiLM and attention
-// of every head, y kept in registers and handed to the caller's epilogue.
+// shared by K1's strip path (window_attention_fwd.cu, one window a CTA),
+// R7's (maxvit_layer_attention.cu, a cluster of CTAs a sample-lead, each
+// running its windows one after another) and the out-projection family's
+// (outproj_attention.cu, R12, R13, R2 and R8: several windows a CTA, one
+// after another): the shared-memory plan of one 64-row window tile, and
+// one window's rows and attention of every head, y kept in registers and
+// handed to the caller's epilogue.
 //
-// bf16, dim and dh multiples of 16, dim <= 128, dh <= 32.  The math is
-// window_attention_body.cuh's (see window_attention_fwd.cu for the
-// derivation); the design:
+// bf16, dim and dh multiples of 16, dim <= 128, dh <= 32, out_dim (y's
+// width) a multiple of 16 <= 128.  The math is window_attention_body.cuh's
+// (see window_attention_fwd.cu for the derivation), with three
+// compile-time choices for the out-projection family, whose function has
+// no LayerNorm, FiLM or q/k gain (outproj_attention.cu): where the rows
+// come from (NormRows: LayerNorm + FiLM of the caller's loader, K1 and R7;
+// CopyRows: x's bf16 rows copied as they are by cp.async), whether the
+// normalized q and k carry sqrt(dh) times the head's gain, and whether
+// each n x n product takes its split operands (hi.hi + hi.lo + lo.hi) or
+// their high parts alone (R2's casts: the high part is the round-to-
+// nearest bf16 of the value, which is the repro's cast).  K1 and R7 take
+// rows from NormRows, the gain, the split products and out_dim = dim.
+// The design:
 //   - q|k|v = xn . Wqkv_h on mma.sync m16n8k16 tiles: warp w of the 8 owns
 //     the 16-row strip w % 4 of the tile, warps w and w + 4 share it; warp
 //     w takes its strip's q (w < 4) or k rows and half of its v rows, in
 //     independent accumulators, and in their epilogue l2-normalizes the q
-//     (or k) rows (the sum of squares across a quad's four lanes) times
-//     sqrt(dh) gq_h (or gk_h).  qn|kn|v go to shared memory once, each f32
-//     value split into a bf16 high part and the bf16 rounding of its
-//     remainder (two bf16 planes);
+//     (or k) rows (the sum of squares across a quad's four lanes), times
+//     sqrt(dh) gq_h (or gk_h) with the gain.  qn|kn|v go to shared memory
+//     once, each f32 value split into a bf16 high part and the bf16
+//     rounding of its remainder (two bf16 planes; the low part only for a
+//     split product);
 //   - S = qn kn^T and O = P v from the split parts (hi.hi + hi.lo + lo.hi,
-//     f32 sums, ~2^-16 relative error): both warps of a strip compute its
+//     f32 sums, ~2^-16 relative error), or from the high parts alone (one
+//     bf16 product, f32 sums): both warps of a strip compute its
 //     scores and softmax in registers (the bias read ahead as the scores'
 //     initial sums; the row max and sum across the quad; one reciprocal a
 //     row; the dropout keep value on K1-d's counters), then each takes half
@@ -25,7 +39,8 @@
 //     rounded to bf16 where the TPU kernel casts o_h;
 //   - y += o . Wout_h: the strip's two warps meet at a named barrier (ids
 //     1..4, 64 threads), and each adds the strip's o . Wout_h into its half
-//     of the strip's y, which stays in registers until the epilogue.
+//     of the strip's y (out_dim columns), which stays in registers until
+//     the epilogue.
 // Each head's Wqkv_h and Wout_h are staged in shared memory by cp.async
 // ahead of use; a head costs two block barriers.  Strips wholly past n are
 // skipped; the rows n..63 of a strip that is not hold finite values and
@@ -36,6 +51,7 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "window_attention_body.cuh"
 
@@ -56,20 +72,21 @@ constexpr int kYTiles = kMaxStripDim / 16;   // 8-column tiles of half of y
 // the normalized x in bf16 (its offset and stride those of make_plan<true>,
 // so that layer_norm_rows fills it); qn|kn|v split into bf16 high and low
 // parts, the two planes of the same layout; o = P.v in bf16; the head's
-// weights Wqkv_h and Wout_h staged in bf16.  The strides keep the rows of a
-// quad's fragment reads and of each ldmatrix on distinct banks.
+// weights Wqkv_h and Wout_h (dh x out_dim) staged in bf16.  The strides
+// keep the rows of a quad's fragment reads and of each ldmatrix on
+// distinct banks.
 struct StripPlan {
   int ldx, ldh, ldo, ldwq, ldwo;
   size_t xs, hi, lo, o, wq, wo, bytes;
 };
 
-__host__ __device__ StripPlan make_strip_plan(int dim, int dh) {
+__host__ __device__ StripPlan make_strip_plan(int dim, int dh, int out_dim) {
   StripPlan p{};
   p.ldx = dim + 8;
   p.ldh = 3 * dh + 8;
   p.ldo = dh + 8;
   p.ldwq = 3 * dh + 8;
-  p.ldwo = dim + 8;
+  p.ldwo = out_dim + 8;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     const size_t at = off;
@@ -104,22 +121,49 @@ __device__ __forceinline__ void frag_a_bf16(const bf16* m, int ld, int r,
   a[3] = load_u32(m + (r + g + 8) * ld + c + 8 + 2 * t);
 }
 
-// One window: head 0's weights in flight during the LayerNorm + FiLM of
-// the tile's rows (load(r, c): the f32 input of row r < n, column c; gamma,
-// beta: the window's FiLM rows, read when has_film), then every head, then
-// epilogue(r, c, y[r][c], y[r][c + 1]) once for each row r < n and even
-// column c, from the thread that holds them (the same thread for the same
-// (r, c) in every call).  Every thread is past the window's last block
-// barrier when the epilogue runs, and shared memory may be refilled by the
-// next call at once.  `win` indexes the dropout hash (keep_threshold 0:
-// none).  Named barriers 1..4 are the body's.
-template <typename Load, typename Epilogue>
+// Where a window's rows come from.  NormRows: the LayerNorm + FiLM of
+// load(r, c) (the f32 input of row r < n, column c; gamma, beta: the
+// window's FiLM rows, read when has_film), rows n..63 written zero.
+// CopyRows: rows < n of the (n, dim) bf16 window at x, by cp.async; rows
+// n..63 are not written, so the caller zeroes them once before the first
+// window (a padded q, k or v row must be finite: 0 x NaN is NaN in P.v).
+template <typename Load>
+struct NormRows {
+  Load load;
+  const float* gamma;
+  const float* beta;
+  int has_film;
+};
+
+template <typename Load>
+__device__ __forceinline__ NormRows<Load> norm_rows(Load load,
+                                                    const float* gamma,
+                                                    const float* beta,
+                                                    int has_film) {
+  return {load, gamma, beta, has_film};
+}
+
+struct CopyRows {
+  const bf16* x;
+};
+
+// One window: head 0's weights in flight while the rows fill the tile,
+// then every head, then epilogue(r, c, y[r][c], y[r][c + 1]) once for each
+// row r < n and even column c < out_dim, from the thread that holds them
+// (the same thread for the same (r, c) in every call).  Every thread is
+// past the window's last block barrier when the epilogue runs, and shared
+// memory may be refilled by the next call at once.  `win` indexes the
+// dropout hash (keep_threshold 0: none).  Named barriers 1..4 are the
+// body's.  kQkGain: qn, kn times sqrt(dh) q_gamma_h, k_gamma_h (else
+// neither is read); kSplitScore, kSplitAgg: S, O from split operands (else
+// from their high parts).
+template <bool kQkGain = true, bool kSplitScore = true, bool kSplitAgg = true,
+          typename Rows, typename Epilogue>
 __device__ __forceinline__ void attend_window_strips(
-    unsigned char* smem, const StripPlan& plan, Load load, int n, int dim,
-    const float* gamma, const float* beta, int has_film,
+    unsigned char* smem, const StripPlan& plan, Rows rows, int n, int dim,
     const bf16* __restrict__ wqkv, const float* __restrict__ q_gamma,
     const float* __restrict__ k_gamma, const bf16* __restrict__ wout,
-    const float* __restrict__ bias, int heads, int dh, int win,
+    const float* __restrict__ bias, int heads, int dh, int out_dim, int win,
     unsigned seed, unsigned keep_threshold, float keep_scale,
     Epilogue epilogue) {
   const int ldh = plan.ldh;
@@ -135,17 +179,19 @@ __device__ __forceinline__ void attend_window_strips(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t wq_elems = static_cast<size_t>(dim) * 3 * dh;
-  const size_t wo_elems = static_cast<size_t>(dh) * dim;
+  const size_t wo_elems = static_cast<size_t>(dh) * out_dim;
 
-  // head 0's weights in flight during the LayerNorm + FiLM into xs
+  // head 0's weights in flight while the rows fill xs
   copy_rows_async(wq_s, plan.ldwq, wqkv, 3 * dh, dim, 3 * dh, false);
-  copy_rows_async(wo_s, plan.ldwo, wout, dim, dh, dim);
-  {
+  copy_rows_async(wo_s, plan.ldwo, wout, out_dim, dh, out_dim);
+  if constexpr (std::is_same_v<Rows, CopyRows>) {
+    copy_rows_async(xs, plan.ldx, rows.x, dim, n, dim);
+  } else {
     Plan ln{};
     ln.ldx = plan.ldx;
     ln.xs = plan.xs;
-    layer_norm_rows<bf16, true>(smem, ln, load, n, dim, gamma, beta,
-                                has_film);
+    layer_norm_rows<bf16, true>(smem, ln, rows.load, n, dim, rows.gamma,
+                                rows.beta, rows.has_film);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -167,7 +213,7 @@ __device__ __forceinline__ void attend_window_strips(
   const int c_v = 2 * dh + (second ? dh / 2 : 0);
   const int o_tiles = dh / 16;   // 8-column tiles of O a warp takes
   const int c_o = second ? 8 * o_tiles : 0;
-  const int y_tiles = dim / 16;  // 8-column tiles of y a warp takes
+  const int y_tiles = out_dim / 16;  // 8-column tiles of y a warp takes
   const int c_y = second ? 8 * y_tiles : 0;
   // ldmatrix row of this lane in a 16 x 16 block
   const int b_k = (lane & 7) + (((lane >> 3) & 1) << 3);
@@ -189,8 +235,9 @@ __device__ __forceinline__ void attend_window_strips(
     float s[kKeyTiles][4];  // the strip's scores, then P
 
     // this warp's share of the strip's q|k|v = xn . Wqkv_h, then its q (or
-    // k) rows l2-normalized times sqrt(dh) gq_h (or gk_h): qn (or kn) and
-    // v, split into bf16 high and low parts
+    // k) rows l2-normalized (times sqrt(dh) gq_h or gk_h with the gain): qn
+    // (or kn) and v, split into bf16 high and low parts (the high part
+    // alone for a product that takes no low part)
     if (strip < nk) {
       float acc[kQkvTiles][4];
 #pragma unroll
@@ -245,21 +292,27 @@ __device__ __forceinline__ void attend_window_strips(
           const int c = qk ? 8 * j + 2 * tq : 8 * (j - qk_tiles) + 2 * tq;
           float sa0 = 1.f, sa1 = 1.f, sb0 = 1.f, sb1 = 1.f;
           if (qk) {
-            const float g0 = sqrt_dh * gain[c];
-            const float g1 = sqrt_dh * gain[c + 1];
-            sa0 = rsa * g0;
-            sa1 = rsa * g1;
-            sb0 = rsb * g0;
-            sb1 = rsb * g1;
+            if constexpr (kQkGain) {
+              const float g0 = sqrt_dh * gain[c];
+              const float g1 = sqrt_dh * gain[c + 1];
+              sa0 = rsa * g0;
+              sa1 = rsa * g1;
+              sb0 = rsb * g0;
+              sb1 = rsb * g1;
+            } else {
+              sa0 = sa1 = rsa;
+              sb0 = sb1 = rsb;
+            }
           }
           const int col = (qk ? c_qk : c_v) + c;
+          const bool split = qk ? kSplitScore : kSplitAgg;
           uint32_t h2, l2;
           split_bf16(acc[j][0] * sa0, acc[j][1] * sa1, h2, l2);
           *reinterpret_cast<uint32_t*>(hi + ra * ldh + col) = h2;
-          *reinterpret_cast<uint32_t*>(lo + ra * ldh + col) = l2;
+          if (split) *reinterpret_cast<uint32_t*>(lo + ra * ldh + col) = l2;
           split_bf16(acc[j][2] * sb0, acc[j][3] * sb1, h2, l2);
           *reinterpret_cast<uint32_t*>(hi + rb * ldh + col) = h2;
-          *reinterpret_cast<uint32_t*>(lo + rb * ldh + col) = l2;
+          if (split) *reinterpret_cast<uint32_t*>(lo + rb * ldh + col) = l2;
         }
       }
     }
@@ -275,14 +328,19 @@ __device__ __forceinline__ void attend_window_strips(
       uint32_t ahi[4], alo[4];
       for (int k0 = 0; k0 < dh; k0 += 16) {
         frag_a_bf16(hi, ldh, r0, k0, ahi);
-        frag_a_bf16(lo, ldh, r0, k0, alo);
+        if constexpr (kSplitScore) frag_a_bf16(lo, ldh, r0, k0, alo);
 #pragma unroll
         for (int j = 0; j < kKeyTiles; ++j) {
           if (j < 2 * nk) {
             const int at = (8 * j + gq) * ldh + dh + k0 + 2 * tq;
             const uint32_t bhi[2] = {load_u32(hi + at), load_u32(hi + at + 8)};
-            const uint32_t blo[2] = {load_u32(lo + at), load_u32(lo + at + 8)};
-            mma_split_16816(s[j], ahi, alo, bhi, blo);
+            if constexpr (kSplitScore) {
+              const uint32_t blo[2] = {load_u32(lo + at),
+                                       load_u32(lo + at + 8)};
+              mma_split_16816(s[j], ahi, alo, bhi, blo);
+            } else {
+              mma_bf16_16816(s[j], ahi, bhi[0], bhi[1]);
+            }
           }
         }
       }
@@ -346,14 +404,20 @@ __device__ __forceinline__ void attend_window_strips(
       for (int kk = 0; kk < kStrips; ++kk) {
         if (kk < nk) {
           frag_a_acc(s[2 * kk], s[2 * kk + 1], ahi, alo);
-          uint32_t vh[4], vl[4];
+          uint32_t vh[4];
           const int at = (16 * kk + b_k) * ldh + 2 * dh + c_o + b_n;
           ldmatrix_x4_trans(vh, hi + at);
-          ldmatrix_x4_trans(vl, lo + at);
-          const uint32_t bh0[2] = {vh[0], vh[1]}, bl0[2] = {vl[0], vl[1]};
-          const uint32_t bh1[2] = {vh[2], vh[3]}, bl1[2] = {vl[2], vl[3]};
-          mma_split_16816(o[0], ahi, alo, bh0, bl0);
-          mma_split_16816(o[1], ahi, alo, bh1, bl1);
+          if constexpr (kSplitAgg) {
+            uint32_t vl[4];
+            ldmatrix_x4_trans(vl, lo + at);
+            const uint32_t bh0[2] = {vh[0], vh[1]}, bl0[2] = {vl[0], vl[1]};
+            const uint32_t bh1[2] = {vh[2], vh[3]}, bl1[2] = {vl[2], vl[3]};
+            mma_split_16816(o[0], ahi, alo, bh0, bl0);
+            mma_split_16816(o[1], ahi, alo, bh1, bl1);
+          } else {
+            mma_bf16_16816(o[0], ahi, vh[0], vh[1]);
+            mma_bf16_16816(o[1], ahi, vh[2], vh[3]);
+          }
         }
       }
 #pragma unroll
@@ -389,8 +453,8 @@ __device__ __forceinline__ void attend_window_strips(
     __syncthreads();     // qn|kn|v, o and Wout_h are free
     // Wout_{h+1} in flight until the next head's first barrier
     if (next)
-      copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, dim, dh,
-                      dim);
+      copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, out_dim,
+                      dh, out_dim);
   }
 
   // y rows < n of this warp's columns, to the epilogue

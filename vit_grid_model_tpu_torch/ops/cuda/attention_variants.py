@@ -21,7 +21,9 @@ CUDA kernels under ``csrc/`` and their launch counters.
   indicator;
 * ``outproj_attention`` (``outproj_attention.cu``): R12, R13, R2 and R8,
   R1's function plus the out-projection, with the pass, out-projection,
-  cast, windows-a-CTA and n choices at run time;
+  cast, windows-a-CTA and n choices at run time; in bf16 at K1's strip
+  widths on K1's strip body (``outproj_route`` names the design a launch
+  takes);
 * ``headpack_attention`` (``headpack_attention.cu``): R5 and R6, the same
   function with a pack of K heads' q|k|v from one product and one
   out-projection a pack.
@@ -58,8 +60,11 @@ staged_core_launches = 0      # R11's core
 layer_launches = 0            # R7
 crosshead_launches = 0        # R3
 # R12, R13, R2 and R8's kernel, by (two_pass, perhead_wout, bf16_score,
-# bf16_agg, windows_per_cta)
+# bf16_agg, windows_per_cta), and by the design it took ("first" or
+# "strip", as OUTPROJ_ROUTES names the kernel's route)
 outproj_launches: Counter = Counter()
+outproj_route_launches: Counter = Counter()
+OUTPROJ_ROUTES = ("first", "strip")
 # R5 and R6's kernel, by (k_pack, two_pass, windows_per_cta)
 headpack_launches: Counter = Counter()
 
@@ -71,6 +76,7 @@ def reset_launches() -> None:
     global staged_core_launches, layer_launches, crosshead_launches
     perhead_launches.clear()
     outproj_launches.clear()
+    outproj_route_launches.clear()
     headpack_launches.clear()
     perhead_weight_launches = headmajor_launches = stacked_launches = 0
     staged_core_launches = layer_launches = crosshead_launches = 0
@@ -389,13 +395,23 @@ def crosshead_norm_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
     return out
 
 
+def outproj_route(n: int, dim: int, dh: int, out_dim: int,
+                  dtype: torch.dtype) -> str:
+    """The design a launch of the out-projection kernel at these widths
+    takes, as the kernel's own ``vgm_outproj_attention_route`` says:
+    "strip" (bf16, dim, dim_head and out_dim multiples of 16, dim <= 128,
+    dim_head <= 32, out_dim <= 128) or "first"."""
+    return OUTPROJ_ROUTES[library.load().vgm_outproj_attention_route(
+        n, dim, dh, out_dim, int(dtype == torch.bfloat16))]
+
+
 def _pick_outproj(smem_bytes, dim: int, dh: int, out_dim: int, heads: int,
                   is_bf16: int, two_pass: bool, perhead_wout: bool):
     """(heads a two-pass stack, heads a concat product) of the out-
-    projection kernel: the stack the largest power of two up to 2 heads (as
-    R4's pick; 0 for one pass), then the concat the largest power of two up
-    to every head (0 for a per-head out-projection), that fit one CTA's
-    shared memory; None when nothing fits."""
+    projection kernel's first design: the stack the largest power of two up
+    to 2 heads (as R4's pick; 0 for one pass), then the concat the largest
+    power of two up to every head (0 for a per-head out-projection), that
+    fit one CTA's shared memory; None when nothing fits."""
     def fits(group, cat):
         return smem_bytes(dim, dh, out_dim, group, cat, is_bf16) <= MAX_SMEM
 
@@ -431,8 +447,11 @@ def outproj_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
     into the kernel's per-head slices.  ``two_pass``: every head's scores of
     a group first, then one softmax and P.v; ``perhead_wout``: one product
     a head summed in f32, else the concat of the head outputs; the casts as
-    R2's; ``windows_per_cta`` as R8's 8 * kfold.  Returns (Bw, n, out_dim)
-    in ``out_dtype``."""
+    R2's; ``windows_per_cta`` as R8's 8 * kfold.  In bf16 at K1's strip
+    widths (``outproj_route``) the kernel runs K1's strip body, where the
+    two structures are one computation: ``two_pass`` and ``perhead_wout``
+    then pick nothing, and are still counted.  Returns (Bw, n, out_dim) in
+    ``out_dtype``."""
     heads = bias.shape[0]
     if w.dim() == 4:
         _, _, dim, dh = w.shape
@@ -463,12 +482,17 @@ def outproj_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
         raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
     is_bf16 = int(x.dtype == torch.bfloat16)
     lib = library.load()
-    picked = _pick_outproj(lib.vgm_outproj_attention_smem_bytes, dim, dh,
-                           out_dim, heads, is_bf16, two_pass, perhead_wout)
-    if picked is None:
-        raise ValueError(f"{name}: dim={dim}, dim_head={dh}, out_dim="
-                         f"{out_dim} do not fit in shared memory")
-    group, cat = picked
+    route = outproj_route(n, dim, dh, out_dim, x.dtype)
+    if route == "strip":
+        group = cat = 0   # the strip design reads neither
+    else:
+        picked = _pick_outproj(lib.vgm_outproj_attention_smem_bytes, dim,
+                               dh, out_dim, heads, is_bf16, two_pass,
+                               perhead_wout)
+        if picked is None:
+            raise ValueError(f"{name}: dim={dim}, dim_head={dh}, out_dim="
+                             f"{out_dim} do not fit in shared memory")
+        group, cat = picked
     out = torch.empty(bw, n, out_dim, dtype=out_dtype, device=x.device)
     library.check(lib.vgm_outproj_attention(
         x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), wout2.data_ptr(),
@@ -477,6 +501,7 @@ def outproj_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
         int(out_dtype == torch.bfloat16), library.stream(x)), name)
     outproj_launches[(two_pass, perhead_wout, bf16_score, bf16_agg,
                       windows_per_cta)] += 1
+    outproj_route_launches[route] += 1
     return out
 
 

@@ -134,6 +134,10 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_long
         lib.vgm_outproj_attention_smem_bytes.argtypes = [i32] * 6
         lib.vgm_outproj_attention_smem_bytes.restype = ctypes.c_long
+        lib.vgm_outproj_attention_route.argtypes = [i32] * 5
+        lib.vgm_outproj_attention_route.restype = ctypes.c_int
+        lib.vgm_outproj_attention_occupancy.argtypes = [i32] * 9 + [ptr]
+        lib.vgm_outproj_attention_occupancy.restype = ctypes.c_int
         lib.vgm_headpack_attention_smem_bytes.argtypes = [i32] * 7
         lib.vgm_headpack_attention_smem_bytes.restype = ctypes.c_long
         lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 8

@@ -57,7 +57,8 @@ def main(iters: int = ITERS) -> Dict[int, Dict[str, Tuple[float, float]]]:
         print(f"=== {label}: {r1.N_PAD} tokens, dim {r1.DIM}, {r1.HEADS} "
               f"heads x {r1.DIM_HEAD}, out {ws.OUT_DIM}, bf16 ===", flush=True)
         results[bw] = r = run(bw, iters)
-        ws.print_bound(bw)
+        ws.print_bound(bw, results=r)
+        print(f"kernel launches: {ws.occupancy_line()}", flush=True)
         print("kernel <variant> / kernel f32_dots: " + ", ".join(
             f"{name} {r[f'kernel {name}'][0] / r['kernel f32_dots'][0]:.3f}"
             for name in CASTS), flush=True)

@@ -222,8 +222,8 @@ def one_cta_variant(fwd: str) -> str:
          "                      plan.ldwq, wqkv + (h + 1) * wq_elems, 3 * dh,"
          " dim, 3 * dh, false);\n"
          "      copy_rows_async(wo_s + ((h + 1) & 1) * dh * plan.ldwo,\n"
-         "                      plan.ldwo, wout + (h + 1) * wo_elems, dim, dh,"
-         " dim);\n"
+         "                      plan.ldwo, wout + (h + 1) * wo_elems, "
+         "out_dim, dh, out_dim);\n"
          "    }\n"),
         ("b, wq_s + (k0 + b_k) * plan.ldwq",
          "b, wq_h + (k0 + b_k) * plan.ldwq"),
@@ -237,8 +237,8 @@ def one_cta_variant(fwd: str) -> str:
          "b, wo_h + (k0 + b_k) * plan.ldwo"),
         ("""    // Wout_{h+1} in flight until the next head's first barrier
     if (next)
-      copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, dim, dh,
-                      dim);
+      copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, out_dim,
+                      dh, out_dim);
 """, ""),
     ])
 
@@ -250,7 +250,10 @@ def variants(fwd_path: Path) -> Dict[str, Tuple[str, str]]:
     if fwd_path.resolve() == SOURCE.resolve():
         fwd = inline_header(fwd, fwd_path.parent / STRIPS)
         return {k: (v, body) for k, v in strip_variants(fwd).items()}
-    if is_strip_design(fwd):  # an earlier strip design: timed as it is
+    if is_strip_design(fwd):  # an earlier strip design: timed as it is,
+        strips = fwd_path.parent / STRIPS  # with its own strip header
+        if strips.exists():
+            fwd = inline_header(fwd, strips)
         return {"plain": (fwd, body)}
     return first_variants(fwd, body)
 

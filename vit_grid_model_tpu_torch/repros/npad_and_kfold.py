@@ -54,7 +54,9 @@ def main(iters: int = ITERS
                   f"heads x {r1.DIM_HEAD}, out {ws.OUT_DIM}, bf16 ===",
                   flush=True)
             results[bw][n_pad] = r = run(bw, n_pad, iters)
-            ws.print_bound(bw, n_pad)
+            ws.print_bound(bw, n_pad, r)
+            print(f"kernel launches: {ws.occupancy_line(n_pad)}",
+                  flush=True)
             print("kfold=k / kfold=1: " + ", ".join(
                 f"{k} {r[f'kfold={k}'][0] / r['kfold=1'][0]:.3f}"
                 for k in KFOLDS), flush=True)

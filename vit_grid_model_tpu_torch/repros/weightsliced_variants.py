@@ -22,16 +22,21 @@ version:
   (``torch.mm(..., out_dtype=torch.float32)``), rounded to bf16.  It is the
   yardstick of whether the fusion pays on this card, not a port.
 
-No single PyTorch call computes the function (SDPA has no qkv product, l2
-norm or out-projection), so the kernels have no library time.  ``run``
-takes other versions: the R2 and R8 harnesses time theirs with it.  Needs
-one CUDA device:
+Each Bw's block also prints each version's time over the bound, the
+design the kernel's launches took with its occupancy (``occupancy_line``:
+registers, local bytes, shared memory a CTA, CTAs an SM), and a sweep of
+``ws_2pass_pwout`` over 1, 2, 4, 8, 16 and 32 windows a CTA (CTAs a launch
+beside the card's slots).  No single PyTorch call computes the function
+(SDPA has no qkv product, l2 norm or out-projection), so the kernels have
+no library time.  ``run`` takes other versions: the R2 and R8 harnesses
+time theirs with it.  Needs one CUDA device:
 
     python -m vit_grid_model_tpu_torch.repros.weightsliced_variants
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 from typing import Callable, Dict, Tuple
 
@@ -41,12 +46,14 @@ from torch import Tensor
 
 from vit_grid_model_tpu_torch.ops.attention_variants import outproj_attention
 from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+from vit_grid_model_tpu_torch.ops.cuda import library
 from vit_grid_model_tpu_torch.repros import baseline_perhead as r1
 from vit_grid_model_tpu_torch.repros import common
 from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
 
 OUT_DIM = r1.DIM
 ITERS = 10   # timed calls a version
+SWEEP = (1, 2, 4, 8, 16, 32)   # windows a CTA of the sweep
 LIBRARY = ("none: no single PyTorch call computes the function (SDPA has "
            "no qkv product, l2 norm or out-projection)")
 # the repro's variants: name -> (R9's w4 weight, two_pass, perhead_wout)
@@ -144,10 +151,44 @@ def run(bw: int, versions: Dict[str, Version] = VERSIONS,
         r1.TOLERANCE[dtype], iters=iters)
 
 
-def print_bound(bw: int, n: int = r1.N_PAD) -> None:
+def print_bound(bw: int, n: int = r1.N_PAD,
+                results: Dict[str, Tuple[float, float]] = None) -> None:
+    """The bound at Bw = ``bw``, and each result's time over it."""
     bound, by = bound_ms(bw, n, r1.DIM, r1.HEADS, r1.DIM_HEAD, OUT_DIM,
                          torch.bfloat16)
     print(f"bound {bound:.4f} ms ({by}); library call {LIBRARY}", flush=True)
+    if results:
+        print("ms / bound: " + ", ".join(
+            f"{name} {ms / bound:.2f}" for name, (ms, _) in results.items()),
+            flush=True)
+
+
+def occupancy_line(n: int = r1.N_PAD) -> str:
+    """The design a bf16 launch at the repros' widths takes, as the kernel
+    says, with its occupancy (the strip design's, which reads no stack or
+    concat plan)."""
+    lib = library.load()
+    out = (ctypes.c_int * 4)()
+    route = lib.vgm_outproj_attention_occupancy(
+        n, r1.DIM, r1.DIM_HEAD, OUT_DIM, 0, 0, 0, 0, 1, out)
+    if route < 0:
+        raise RuntimeError("vgm_outproj_attention_occupancy failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"{av.OUTPROJ_ROUTES[route]} design: {out[0]} registers, "
+            f"{out[1]} B local a thread, {out[2]} B shared a CTA, {out[3]} "
+            f"CTAs an SM ({sms * out[3]} slots)")
+
+
+def sweep(bw: int, iters: int = ITERS) -> Dict[str, Tuple[float, float]]:
+    """``ws_2pass_pwout`` at each of SWEEP windows a CTA beside the plain
+    version: {name: (ms, max rel vs plain)}."""
+    r = run(bw, {"plain": plain(), **{
+        f"wpc={w}": kernel(True, True, windows_per_cta=w) for w in SWEEP}},
+        iters=iters)
+    print(f"sweep at Bw {bw}, {occupancy_line()}: " + ", ".join(
+        f"{w} windows a CTA {r[f'wpc={w}'][0]:.3f} ms ({-(-bw // w)} CTAs)"
+        for w in SWEEP), flush=True)
+    return r
 
 
 def main(iters: int = ITERS) -> Dict[int, Dict[str, Tuple[float, float]]]:
@@ -159,9 +200,11 @@ def main(iters: int = ITERS) -> Dict[int, Dict[str, Tuple[float, float]]]:
         print(f"=== {label}: {r1.N_PAD} tokens, dim {r1.DIM}, {r1.HEADS} "
               f"heads x {r1.DIM_HEAD}, out {OUT_DIM}, bf16 ===", flush=True)
         results[bw] = r = run(bw, iters=iters)
-        print_bound(bw)
+        print_bound(bw, results=r)
+        print(f"kernel launches: {occupancy_line()}", flush=True)
         print(f"ws_2pass_pwout / unfused "
               f"{r['ws_2pass_pwout'][0] / r['unfused'][0]:.3f}", flush=True)
+        r.update(sweep(bw, iters))
     print(json.dumps({"card": card, "ms": {
         bw: {k: v[0] for k, v in r.items()} for bw, r in results.items()}}))
     return results
