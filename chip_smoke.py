@@ -62,10 +62,13 @@ models, SimVP and the utilities.  Phases:
 10. R4, R10, R9 and R11: the head-major batched kernel, the stacked-softmax
    kernel, R9's route through the per-head kernel, R11's core kernel and
    R11 whole vs their plain versions (bf16 at Bw 2,880, f32, a ragged Bw,
-   3 heads x 16, a diverging-score case in both types), bit-identical on a
-   second launch; then the four repros' entry points, each of which must
-   launch its kernel, with kernel, plain and R1-kernel times (R11 also the
-   core against SDPA);
+   3 heads x 16, a diverging-score case in both types; R10 also at n 64
+   and 9, Bw 2,880 and 37), bit-identical on a second launch, R10's lines
+   with the design its launches took (bf16 at the repro's widths the strip
+   design, K1's strip body without the out-projection; f32 the first);
+   then the four repros' entry points, each of which must launch its
+   kernel (R10 only through the strip design), with kernel, plain and
+   R1-kernel times (R11 also the core against SDPA);
 11. R3 and the out-projection family: R3's cross-head indicator-norm
    kernel on phase 10's cases; the out-projection kernel's shipping
    structure (ws_2pass_pwout) on the same cases, the other R12/R13
@@ -83,9 +86,12 @@ models, SimVP and the utilities.  Phases:
 12. R5 and R6: the head-pack kernel at K = 2, 4 and 8 heads a pack, one
    pass and two, 8 and 16 windows a CTA, vs plain (bf16 at Bw 2,880, f32
    with an f32 output, a ragged Bw, every odd head's scores 200 below in
-   both types), bit-identical on a second launch; then the two repros'
-   entry points, each of which must launch the kernel at every K it runs,
-   with kernel, plain, out-projection-kernel and unfused times;
+   both types), bit-identical on a second launch, each build's design
+   asserted (bf16 the out-projection kernel's strip kernel, its output
+   bit-identical to ``outproj_attention``'s at the same windows a CTA; f32
+   the first design); then the two repros' entry points, each of which
+   must launch the kernel at every K it runs (only through the strip
+   design), with kernel, plain, out-projection-kernel and unfused times;
 13. the inference entry points, on phase 4's tree, at the shipped 12-hour
    configuration in bf16: (a) ``Forecaster(device="cuda")`` at B = 1, 2
    warm-ups and 20 requests (p50/p90 latency; one request against a
@@ -1737,6 +1743,14 @@ VARIANT_CASES = [
     ("diverging", 40, 56, 128, 32, 32, "bfloat16", -200.0),
     ("diverging", 40, 56, 128, 32, 32, "float32", -200.0),
 ]
+# R10's strip design at n 64 and 9 (three of the tile's four 16-row strips
+# wholly padding), at the repro's Bw and a ragged one; the same fields
+STACKED_CASES = [
+    ("n=64", 2880, 64, 128, 32, 32, "bfloat16", 0.0),
+    ("n=64 ragged", 37, 64, 128, 32, 32, "bfloat16", 0.0),
+    ("n=9", 2880, 9, 128, 32, 32, "bfloat16", 0.0),
+    ("n=9 diverging", 37, 9, 128, 32, 32, "bfloat16", -200.0),
+]
 
 
 def variant_routes(x, wqkv, bias, heads, dh):
@@ -1772,40 +1786,67 @@ def variant_routes(x, wqkv, bias, heads, dh):
     }
 
 
+def stacked_design(n, dim, dh, dtype_name):
+    """The design R10's kernel takes at these widths: K1's strip body
+    without the out-projection in bf16 at dim and dim_head multiples of 16,
+    dim <= 128, dim_head <= 32; else the first design."""
+    return ("strip" if dtype_name == "bfloat16" and dim % 16 == 0
+            and dh % 16 == 0 and dim <= 128 and dh <= 32 else "first")
+
+
 def variants_vs_plain(dev):
     """Phase 10a: R4's, R10's and R11's kernels, R11 whole and R9's route
-    against their plain versions.  Returns {route: max|kernel - plain|} at
-    Bw 2,880 in bf16."""
+    against their plain versions, R10 also at n 64 and 9, each of R10's
+    launches on the design ``stacked_design`` names.  Returns {route:
+    max|kernel - plain|} at Bw 2,880 and n 56 in bf16."""
     import torch
 
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
     from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
 
     report = {}
-    for name, bw, n, dim, heads, dh, dtype_name, offset in VARIANT_CASES:
+    stacked = "stacked_softmax_attention"
+    for name, bw, n, dim, heads, dh, dtype_name, offset in (VARIANT_CASES
+                                                            + STACKED_CASES):
         dtype = getattr(torch, dtype_name)
         x, wqkv, bias = repro.inputs(bw, dtype, dev, SEED, n=n, dim=dim,
                                      heads=heads, dim_head=dh)
         bias[0] += offset
         tol = TOLERANCE[dtype_name]
         with torch.inference_mode():
-            for route, (kernel, plain) in variant_routes(x, wqkv, bias, heads,
-                                                         dh).items():
+            routes = variant_routes(x, wqkv, bias, heads, dh)
+            if n != repro.N_PAD:
+                routes = {stacked: routes[stacked]}
+            for route, (kernel, plain) in routes.items():
                 ref = plain()
+                before = dict(av.stacked_route_launches)
                 ours = kernel()
                 again = kernel()
                 torch.cuda.synchronize()
                 err, scale = kernel_errors(ours, again, ref, f"{name} {route}")
-                print(f"{name:15s} {dtype_name:8s} Bw={bw:4d} {route:26s}: "
-                      f"max|d|={err:.3e} max|plain|={scale:.3e} "
+                design = ""
+                if route == stacked:
+                    want = stacked_design(n, dim, dh, dtype_name)
+                    took = {d: c - before.get(d, 0) for d, c in
+                            av.stacked_route_launches.items()
+                            if c > before.get(d, 0)}
+                    if (took != {want: 2}
+                            or av.stacked_route(n, dim, dh, dtype) != want):
+                        raise AssertionError(f"{name} {dtype_name} {route}: "
+                                             f"launches {took}, not two on "
+                                             f"the {want} design")
+                    design = f"; {want} design"
+                print(f"{name:15s} {dtype_name:8s} Bw={bw:4d} n={n:2d} "
+                      f"{route:26s}: max|d|={err:.3e} max|plain|={scale:.3e} "
                       f"rel={err / scale:.3e} (tol {tol:g}); second launch "
-                      "bit-identical", flush=True)
+                      f"bit-identical{design}", flush=True)
                 if not err <= tol * scale:
                     raise AssertionError(f"{name} {dtype_name} {route}: "
                                          f"kernel differs from plain by {err}")
-                if bw == 2880:
+                if bw == 2880 and n == repro.N_PAD:
                     report[route] = err
                 del ref, ours, again
-        del x, wqkv, bias
+        del x, wqkv, bias, routes
         torch.cuda.empty_cache()
     return report
 
@@ -1960,15 +2001,18 @@ HEADPACK_K = (2, 4, 8)   # R5's pair, R6's quad and oct
 def headpack_vs_plain(dev):
     """Phase 12a: R5/R6's head-pack kernel against the plain version at K =
     2, 4 and 8 heads a pack, in one pass and two, at 8 and 16 windows a CTA;
-    f32 inputs give an f32 output (held to 1e-4), bf16 the repros' bf16.
-    Returns {K: max|kernel - plain|} at Bw 2,880 in bf16, two passes, 8
-    windows a CTA (the repros' main build)."""
+    f32 inputs give an f32 output (held to 1e-4) on the first design, bf16
+    the repros' bf16 on the out-projection kernel's strip kernel, each
+    build's output bit-identical to ``outproj_attention``'s at the same
+    windows a CTA.  Returns {K: max|kernel - plain|} at Bw 2,880 in bf16,
+    two passes, 8 windows a CTA (the repros' main build)."""
     import torch
 
     from vit_grid_model_tpu_torch.ops import attention_variants as plain
     from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
     from vit_grid_model_tpu_torch.repros import baseline_perhead as r1
     from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
 
     report = {}
     for name, bw, dtype_name, offset in HEADPACK_CASES:
@@ -1976,9 +2020,18 @@ def headpack_vs_plain(dev):
         x, wqkv, bias, wout = ws.inputs(bw, dtype, dev, SEED)
         bias[1::2] += offset
         tol = TOLERANCE[dtype_name]
+        want = "strip" if dtype_name == "bfloat16" else "first"
+        if av.headpack_route(x.shape[1], x.shape[2], r1.DIM_HEAD,
+                             wout.shape[-1], dtype) != want:
+            raise AssertionError(f"{name} {dtype_name}: the head-pack "
+                                 f"kernel's route is not the {want} design")
         with torch.inference_mode():
             ref = plain.outproj_attention(x, wqkv, bias, wout, r1.HEADS,
                                           r1.DIM_HEAD, out_dtype=dtype)
+            family = {wpc: av.outproj_attention(
+                x, weight4(wqkv, r1.HEADS), bias, wout, two_pass=True,
+                perhead_wout=True, windows_per_cta=wpc, out_dtype=dtype)
+                for wpc in (8, 16)} if want == "strip" else {}
             for k in HEADPACK_K:
                 for two_pass in (True, False):
                     for wpc in (8, 16):
@@ -1988,22 +2041,35 @@ def headpack_vs_plain(dev):
                                 two_pass=two_pass, windows_per_cta=wpc,
                                 out_dtype=dtype)
 
+                        before = av.headpack_route_launches[want]
                         ours, again = call(), call()
                         torch.cuda.synchronize()
                         what = (f"{name:15s} {dtype_name:8s} Bw={bw:4d} K={k} "
                                 f"{'2' if two_pass else '1'}pass wpc={wpc:2d}")
                         err, scale = kernel_errors(ours, again, ref, what)
+                        if av.headpack_route_launches[want] != before + 2:
+                            raise AssertionError(f"{what}: its launches did "
+                                                 f"not take the {want} "
+                                                 "design")
+                        same = ""
+                        if want == "strip":
+                            if not torch.equal(ours, family[wpc]):
+                                raise AssertionError(
+                                    f"{what}: differs from outproj_"
+                                    "attention's strip design")
+                            same = ("; = outproj_attention's at this wpc, "
+                                    "bit for bit")
                         print(f"{what}: max|d|={err:.3e} max|plain|="
                               f"{scale:.3e} rel={err / scale:.3e} (tol "
-                              f"{tol:g}); second launch bit-identical",
-                              flush=True)
+                              f"{tol:g}); second launch bit-identical; "
+                              f"{want} design{same}", flush=True)
                         if not err <= tol * scale:
                             raise AssertionError(f"{what}: kernel differs "
                                                  f"from plain by {err}")
                         if (bw, two_pass, wpc) == (2880, True, 8):
                             report[k] = err
                         del ours, again
-        del x, wqkv, bias, wout, ref
+        del x, wqkv, bias, wout, ref, family
         torch.cuda.empty_cache()
     return report
 
@@ -2729,6 +2795,16 @@ def run(root: str) -> int:
     phase("10b", "R4, R10, R9 and R11 paths: their repros")
     av = attention_variants
     variant_runs = {}
+
+    def strip_design(name, counts, by_route):
+        """The repro's launches, and its strip-design launches; raises when
+        one took the first design at the repros' bf16 widths."""
+        if by_route["first"]:
+            raise AssertionError(f"{by_route['first']} {name} launches took "
+                                 "the first design at the repros' bf16 "
+                                 "widths")
+        return {**counts, "strip design": by_route["strip"]}
+
     for module, route, count in (
             (repro_r4, "headmajor_attention", lambda: av.headmajor_launches),
             (repro_r10, "stacked_softmax_attention",
@@ -2737,8 +2813,11 @@ def run(root: str) -> int:
              lambda: av.perhead_weight_launches),
             (repro_r11, "staged_attention_core",
              lambda: av.staged_core_launches)):
-        variant_runs[route] = repro_path(module, [av],
-                                         lambda: {route: count()})
+        counts = (lambda: {route: count()})
+        if module is repro_r10:
+            counts = (lambda: strip_design(route, {route: count()},
+                                           av.stacked_route_launches))
+        variant_runs[route] = repro_path(module, [av], counts)
 
     phase("11a", "R3 and the out-projection kernel (R12, R13, R2, R8) vs "
           "plain on the card")
@@ -2781,10 +2860,14 @@ def run(root: str) -> int:
                    if kk == k)
 
     r5_launches, r5_results = repro_path(
-        repro_r5, [av], lambda: {"K=2": headpack_count(2)})
+        repro_r5, [av], lambda: strip_design(
+            "headpack_attention", {"K=2": headpack_count(2)},
+            av.headpack_route_launches))
     r6_launches, r6_results = repro_path(
-        repro_r6, [av], lambda: {f"K={k}": headpack_count(k)
-                                 for k in HEADPACK_K})
+        repro_r6, [av], lambda: strip_design(
+            "headpack_attention", {f"K={k}": headpack_count(k)
+                                   for k in HEADPACK_K},
+            av.headpack_route_launches))
 
     phase("13a", "inference entry point: serving (Forecaster) on the card")
     t13 = time.perf_counter()

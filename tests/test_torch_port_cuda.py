@@ -6,7 +6,11 @@ keep mask, the fused MBConv, the per-head attention of R1/R14
 kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
 core, and R11 whole) and R3 (cross-head indicator norm), the
 out-projection kernel of R12, R13, R2 and R8, and the head-pack kernel of
-R5 and R6, and the int8 conv's card route.  Skips without a CUDA device.
+R5 and R6, and the int8 conv's card route.  R10's and R5/R6's strip
+designs are asserted by route (R10's at n 9, 56 and 64, ragged Bw and
+diverging scores; R5/R6's bit-identical to the out-projection kernel's
+strip design), with the kernels' route exports.  Skips without a CUDA
+device.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -816,6 +820,109 @@ def test_headpack_attention_rejects_what_it_cannot_run():
                  lambda: headpack(x, wout, windows_per_cta=0)):
         with pytest.raises(ValueError):
             call()
+
+
+# R10's strip design: (Bw, n, head-0 bias offset); Bw 37 leaves a ragged
+# last CTA of 8 windows, n 9 three of the tile's four 16-row strips wholly
+# padding, and -200 puts head 0's scores ~200 below head 1's
+STACKED_STRIP_CASES = [
+    (37, 56, 0.0), (37, 64, 0.0), (37, 9, 0.0), (37, 56, -200.0),
+    (37, 9, -200.0), (2880, 56, 0.0), (2880, 64, -200.0), (2880, 9, 0.0)]
+
+
+@pytest.mark.parametrize("bw,n,offset", STACKED_STRIP_CASES)
+def test_stacked_softmax_strip_route_matches_plain(bw, n, offset):
+    """R10 in bf16 at the repro's widths takes the strip design (K1's strip
+    body without the out-projection), within 2e-2 of the plain version,
+    its second launch bit-identical."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(bw, torch.bfloat16, torch.device("cuda"), 3,
+                                 n=n)
+    bias[0] += offset
+    assert av.stacked_route(n, 128, 32, torch.bfloat16) == "strip"
+    before = av.stacked_route_launches["strip"]
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, 32, 32)
+        ours = av.stacked_softmax_attention(x, wqkv, bias)
+        again = av.stacked_softmax_attention(x, wqkv, bias)
+    torch.cuda.synchronize()
+    assert av.stacked_route_launches["strip"] == before + 2
+    assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "stacked")
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("windows_per_cta", [8, 16])
+@pytest.mark.parametrize("two_pass", [True, False])
+@pytest.mark.parametrize("k_pack", [2, 4, 8])
+def test_headpack_strip_route_is_outproj_strip_route(k_pack, two_pass,
+                                                     windows_per_cta):
+    """R5/R6 in bf16 at the repros' widths take the out-projection
+    kernel's strip kernel: the output is bit-identical to
+    ``outproj_attention``'s at the same windows a CTA, whatever the pack
+    and passes, with every odd head's scores ~200 below (Bw 37: a ragged
+    last CTA)."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
+
+    x, wqkv, bias, wout = ws.inputs(37, torch.bfloat16, torch.device("cuda"),
+                                    5)
+    bias[1::2] -= 200.0
+    assert av.headpack_route(56, 128, 32, 128, torch.bfloat16) == "strip"
+    before = av.headpack_route_launches["strip"]
+    with torch.inference_mode():
+        ours = av.headpack_attention(x, wqkv, bias, wout, k_pack=k_pack,
+                                     two_pass=two_pass,
+                                     windows_per_cta=windows_per_cta)
+        family = av.outproj_attention(x, weight4(wqkv, 32), bias, wout,
+                                      two_pass=True, perhead_wout=True,
+                                      windows_per_cta=windows_per_cta)
+    torch.cuda.synchronize()
+    assert av.headpack_route_launches["strip"] == before + 1
+    assert bool(torch.isfinite(ours.float()).all())
+    assert torch.equal(ours, family)
+
+
+def test_routes_are_named_by_the_kernels_exports():
+    """``headpack_route`` and ``stacked_route`` ask the kernels' own route
+    exports: the strip design in bf16 at K1's strip widths (n <= 64, dim
+    and dim_head multiples of 16, dim <= 128, dim_head <= 32, out_dim <=
+    128), the first design elsewhere; the head-pack kernel's route is the
+    out-projection kernel's; each strip design's occupancy export reports
+    it, at two CTAs an SM or more."""
+    _need_cuda()
+    import ctypes
+
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.ops.cuda import library
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for n, dim, dh, dtype, want in (
+            (56, 128, 32, bf, "strip"), (9, 48, 16, bf, "strip"),
+            (64, 128, 32, bf, "strip"), (56, 128, 32, f32, "first"),
+            (56, 128, 64, bf, "first"), (56, 256, 32, bf, "first"),
+            (56, 40, 16, bf, "first"), (65, 128, 32, bf, "first")):
+        assert av.stacked_route(n, dim, dh, dtype) == want
+        assert av.headpack_route(n, dim, dh, dim, dtype) == want
+        assert av.outproj_route(n, dim, dh, dim, dtype) == want
+    assert av.headpack_route(56, 128, 32, 256, bf) == "first"
+    lib = library.load()
+    out = (ctypes.c_int * 4)()
+    assert lib.vgm_headpack_attention_occupancy(56, 128, 32, 128, 2, 0, 1, 1,
+                                                out) == 1
+    assert out[0] <= 128 and out[3] >= 2
+    assert lib.vgm_stacked_softmax_attention_occupancy(56, 128, 32, 0, 1,
+                                                       out) == 1
+    assert out[2] == 75776 and out[3] >= 2
+    assert lib.vgm_stacked_softmax_attention_occupancy(56, 128, 32, 2, 0,
+                                                       out) == 0
 
 
 @pytest.mark.parametrize("n,c,h,w,o", [

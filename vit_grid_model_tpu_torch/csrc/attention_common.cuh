@@ -623,4 +623,26 @@ __device__ void attend_group(const float* qkv, const GroupLayout& L, int gn,
   }
 }
 
+// Registers, local bytes a thread, shared memory a CTA and CTAs an SM of
+// `kernel` at `smem` bytes into out[0..3]; 0, or -1 on an error.
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return -1;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
+}
+
 }  // namespace

@@ -46,7 +46,28 @@
 // (repros/weightsliced_variants.py::bound_ms).  Packing changes neither the
 // qkv nor the out-projection FLOPs.
 //
-// What this design does about it.  A window's f32 y (64 x out_dim) has to
+// Two designs.  The route (vgm_headpack_attention_route) is the strip
+// design for bf16 with dim, dh and out_dim multiples of 16, dim <= 128, dh
+// <= 32 and out_dim <= 128 (every repro shape), the first design for f32
+// and for bf16 off those widths (dh 64, dim or out_dim > 128).
+//
+// The strip design.  The first design below ran the repros at one CTA an
+// SM with every n x n product on CUDA cores, 41-50 ms at Bw = 9,000 on an
+// H100 (60-77x the bound), where the out-projection family's strip kernel
+// computes this very function in ~9.5 ms.  So in bf16 at its widths this kernel
+// launches that kernel (outproj_attention_strips<true, true>,
+// outproj_strips.cuh: K1's strip body, split n x n products on mma.sync,
+// two CTAs an SM), on the same operands, with no casts.  On that body the
+// pack's structure selects nothing: each head's own row max is each head's
+// own softmax (a two-pass stack's rows are softmaxed row by row, so one
+// pass and two are one computation), and y summed over the heads in mma f32
+// accumulators is both a per-pack and a per-head out-projection summed in
+// f32.  So k_pack, sub_pack and two_pass pick nothing there (the wrapper
+// still takes, checks and counts them); windows_per_cta alone still
+// selects, and the output is bit-identical to outproj_attention.cu's strip
+// design at any windows a CTA.
+//
+// The first design.  A window's f32 y (64 x out_dim) has to
 // live across every pack, and a CTA's windows' y do not fit together, so a
 // CTA of 256 threads runs its `windows_per_cta` windows (the repros' blk) in
 // turn and each window's packs inside, keeping one y in shared memory, as
@@ -74,10 +95,10 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "outproj_strips.cuh"
 
 namespace {
 
-constexpr int kMaxDimHead = 64;
 constexpr int kMaxPack = 8;
 
 struct HeadpackPlan {
@@ -282,8 +303,42 @@ int launch(const void* x, const void* w, const void* bias, const void* wo,
 
 }  // namespace
 
-// Shared memory one CTA of the kernel takes at these widths, K heads a
-// pack and S heads a sub-pack, in one pass or two.
+// 1 when a launch at these widths takes the strip design (the out-
+// projection family's strip kernel), 0 when it takes the first design.
+extern "C" int vgm_headpack_attention_route(int n, int dim, int dh,
+                                            int out_dim, int is_bf16) {
+  return n >= 1 && n <= kRows && strip_route(dim, dh, out_dim, is_bf16);
+}
+
+// The occupancy of the kernel a launch at these widths, K, S and passes
+// takes: out[0..3] = registers, local (spill) bytes a thread, shared
+// memory a CTA, CTAs an SM.  Returns the route (0 first design, 1 strip
+// design), or -1 on an error.
+extern "C" int vgm_headpack_attention_occupancy(int n, int dim, int dh,
+                                                int out_dim, int k_pack,
+                                                int sub_pack, int two_pass,
+                                                int is_bf16, int* out) {
+  if (vgm_headpack_attention_route(n, dim, dh, out_dim, is_bf16))
+    return occupancy_of(strip_kernel(0, 0),
+                        make_strip_plan(dim, dh, out_dim).bytes, out)
+               ? -1
+               : 1;
+  const int err =
+      is_bf16 ? occupancy_of(headpack_attention_kernel<__nv_bfloat16, true>,
+                             make_headpack_plan<__nv_bfloat16>(
+                                 dim, dh, out_dim, k_pack, sub_pack,
+                                 two_pass).bytes,
+                             out)
+              : occupancy_of(headpack_attention_kernel<float, false>,
+                             make_headpack_plan<float>(dim, dh, out_dim,
+                                                       k_pack, sub_pack,
+                                                       two_pass).bytes,
+                             out);
+  return err ? -1 : 0;
+}
+
+// Shared memory one CTA of the first design takes at these widths, K
+// heads a pack and S heads a sub-pack, in one pass or two.
 extern "C" long vgm_headpack_attention_smem_bytes(int dim, int dh,
                                                   int out_dim, int k_pack,
                                                   int sub_pack, int two_pass,
@@ -299,10 +354,11 @@ extern "C" long vgm_headpack_attention_smem_bytes(int dim, int dh,
 // type, head h's q | k | v weights; bias: f32 (heads, n, n); wo: (heads *
 // dh, out_dim) in x's type; out: (bw, n, out_dim), bf16 if out_bf16 else
 // f32.  All contiguous.  dim, dh and out_dim are multiples of 16 (dh <=
-// 64), n <= 64; k_pack (<= 8) divides heads and sub_pack divides k_pack.
-// Pack j is heads j k_pack .. j k_pack + k_pack - 1.  Launches ceil(bw /
-// windows_per_cta) CTAs on `stream` and returns cudaGetLastError() (0 on
-// success).
+// 64), n <= 64; k_pack (<= 8) divides heads; sub_pack divides k_pack (read
+// by the first design only).  Pack j is heads j k_pack .. j k_pack +
+// k_pack - 1.  Launches ceil(bw / windows_per_cta) CTAs of the design
+// vgm_headpack_attention_route names on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int vgm_headpack_attention(const void* x, const void* w,
                                       const void* bias, const void* wo,
                                       void* out, int bw, int n, int dim,
@@ -314,8 +370,12 @@ extern "C" int vgm_headpack_attention(const void* x, const void* w,
   if (bw < 1 || n < 1 || n > kRows || dim < 16 || dim % 16 != 0 ||
       heads < 1 || dh < 16 || dh % 16 != 0 || dh > kMaxDimHead ||
       out_dim < 16 || out_dim % 16 != 0 || k_pack < 1 || k_pack > kMaxPack ||
-      heads % k_pack != 0 || sub_pack < 1 || k_pack % sub_pack != 0 ||
-      windows_per_cta < 1)
+      heads % k_pack != 0 || windows_per_cta < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (strip_route(dim, dh, out_dim, is_bf16))
+    return launch_strips(strip_kernel(0, 0), x, w, bias, wo, out, bw, n, dim,
+                         heads, dh, out_dim, windows_per_cta, out_bf16, st);
+  if (sub_pack < 1 || k_pack % sub_pack != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return launch<__nv_bfloat16, true>(x, w, bias, wo, out, bw, n, dim,

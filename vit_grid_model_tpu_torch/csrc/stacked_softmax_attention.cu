@@ -15,7 +15,39 @@
 // What bounds it on an H100: the same arithmetic as R1, 56.89 MFLOP a
 // window at the repro's shape, 0.166 ms at Bw = 2,880 on the bf16 peak.
 //
-// What this design does about it.  One window's stack of 32 heads' f32
+// Two designs.  The route (vgm_stacked_softmax_attention_route) is the
+// strip design for bf16 with dim and dh multiples of 16, dim <= 128 and dh
+// <= 32 (the repro's shape), the first design for f32 and for bf16 off
+// those widths (dh 64, dim > 128).
+//
+// The strip design (stacked_softmax_strips), since the first design below
+// ran at one CTA an SM with its n x n products on CUDA cores in f32 (41.25
+// ms at Bw = 9,000 on an H100, 84x the bound): K1's strip body
+// (window_attention_strips.cuh) without its out-projection (kOutProj
+// false), with x's bf16 rows copied by cp.async (rows n..63 of the tile
+// zeroed once a CTA, so that a padded q, k or v row is 0, never NaN) and no
+// q/k gain.  Each head: q|k|v on mma.sync m16n8k16 in warp-owned 16-row
+// strips, the l2 norms in the product's epilogue, S = qn kn^T and O = P v
+// from hi/lo-split operands (hi.hi + hi.lo + lo.hi, f32 sums), the softmax
+// of each row in registers with this head's own max, o_h rounded to bf16
+// into the o plane; once a strip's o_h is whole (its two warps' named
+// barrier), its 64 threads store its rows < n to out[w, r, h dh + c], 16
+// bytes a thread in row order (a row's 64 bytes from four neighbouring
+// threads).  Each head's Wqkv_h is staged by cp.async a head ahead.  The
+// stack selects nothing here: one softmax over a stack of rows is each
+// row's own softmax, so group is not read.  A CTA runs windows_per_cta
+// windows in turn.  Shared memory at the repro's widths: x 17,408 B, the
+// hi and lo planes 13,312 each, o 5,120, Wqkv_h 26,624: 75,776 B, which
+// three CTAs an SM fit.  kStripCtasPerSm sets the launch bounds' CTAs an
+// SM: at two ptxas gives 119 registers and no spill, at three 80 registers
+// and 28 B of spill stores, and three ran 2-5% faster on an H100 (repros/
+// headpack_stacked_sections.py, in turns at Bw 2,880 and 9,000), so it is
+// built for three.
+// The output is 8x the bytes of the out-projection family's y at these
+// widths (1.03 GB at Bw = 9,000, 0.31 ms at 3.35 TB/s), below the
+// operations' 0.519 ms.
+//
+// The first design.  One window's stack of 32 heads' f32
 // scores is 401 KB, and rounding the scores to bf16 would compute another
 // function, so the stack holds a group of G heads (the wrapper picks the
 // largest power of two that fits: G = 4 in bf16, 2 in f32).  A CTA of 256
@@ -38,10 +70,12 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "window_attention_strips.cuh"
 
 namespace {
 
-constexpr int kMaxDimHead = 64;
+// CTAs an SM the strip kernel is built for (its launch bounds)
+constexpr int kStripCtasPerSm = 3;
 
 struct StackedPlan {
   int ldx, ldw, ldq;
@@ -175,9 +209,92 @@ int launch(const void* x, const void* wqkv, const void* bias, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the strip design: the body in window_attention_strips.cuh ----
+
+bool strip_route(int dim, int dh, int is_bf16) {
+  return is_bf16 && dim % 16 == 0 && dh % 16 == 0 && dim <= kMaxStripDim &&
+         dh <= kMaxStripDimHead;
+}
+
+__global__ void __launch_bounds__(kThreads, kStripCtasPerSm)
+    stacked_softmax_strips(const bf16* __restrict__ x,
+                           const bf16* __restrict__ wqkv,
+                           const float* __restrict__ bias,
+                           bf16* __restrict__ out, int bw, int n, int dim,
+                           int heads, int dh, int windows_per_cta) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const StripPlan plan = make_strip_plan(dim, dh, 0);
+  // rows n..63 of the tile stay zero: the copies write rows < n only
+  bf16* xs = reinterpret_cast<bf16*>(smem + plan.xs);
+  for (int e = threadIdx.x; e < (kRows - n) * plan.ldx; e += kThreads)
+    xs[n * plan.ldx + e] = __float2bfloat16(0.f);
+  const int w0 = blockIdx.x * windows_per_cta;
+  const int nw = min(windows_per_cta, bw - w0);  // the last CTA is ragged
+  const int inner = heads * dh;
+  for (int wi = 0; wi < nw; ++wi) {
+    bf16* ow = out + static_cast<size_t>(w0 + wi) * n * inner;
+    const auto store = [&](int h, int r, int c, uint4 v) {
+      *reinterpret_cast<uint4*>(ow + static_cast<size_t>(r) * inner +
+                                h * dh + c) = v;
+    };
+    attend_window_strips<false, true, true, false>(
+        smem, plan, CopyRows{x + static_cast<size_t>(w0 + wi) * n * dim}, n,
+        dim, wqkv, nullptr, nullptr, nullptr, bias, heads, dh, 0, 0, 0u, 0u,
+        1.f,
+        store);
+  }
+}
+
+int launch_strips(const void* x, const void* wqkv, const void* bias,
+                  void* out, int bw, int n, int dim, int heads, int dh,
+                  int windows_per_cta, cudaStream_t stream) {
+  const size_t smem = make_strip_plan(dim, dh, 0).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      stacked_softmax_strips, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctas = (bw + windows_per_cta - 1) / windows_per_cta;
+  stacked_softmax_strips<<<ctas, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), bw, n, dim,
+      heads, dh, windows_per_cta);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Shared memory one CTA of the kernel takes at these widths and G.
+// 1 when a launch at these widths takes the strip design, 0 when it takes
+// the first design.
+extern "C" int vgm_stacked_softmax_attention_route(int n, int dim, int dh,
+                                                   int is_bf16) {
+  return n >= 1 && n <= kRows && strip_route(dim, dh, is_bf16);
+}
+
+// The occupancy of the kernel a launch at these widths and G takes:
+// out[0..3] = registers, local (spill) bytes a thread, shared memory a
+// CTA, CTAs an SM.  Returns the route (0 first design, 1 strip design), or
+// -1 on an error.
+extern "C" int vgm_stacked_softmax_attention_occupancy(int n, int dim,
+                                                       int dh, int group,
+                                                       int is_bf16,
+                                                       int* out) {
+  if (vgm_stacked_softmax_attention_route(n, dim, dh, is_bf16))
+    return occupancy_of(stacked_softmax_strips,
+                        make_strip_plan(dim, dh, 0).bytes, out)
+               ? -1
+               : 1;
+  const int err =
+      is_bf16 ? occupancy_of(stacked_softmax_kernel<__nv_bfloat16, true>,
+                             make_stacked_plan<__nv_bfloat16>(dim, dh, group)
+                                 .bytes,
+                             out)
+              : occupancy_of(stacked_softmax_kernel<float, false>,
+                             make_stacked_plan<float>(dim, dh, group).bytes,
+                             out);
+  return err ? -1 : 0;
+}
+
+// Shared memory one CTA of the first design takes at these widths and G.
 extern "C" long vgm_stacked_softmax_attention_smem_bytes(int dim, int dh,
                                                          int group,
                                                          int is_bf16) {
@@ -189,9 +306,11 @@ extern "C" long vgm_stacked_softmax_attention_smem_bytes(int dim, int dh,
 // x: (bw, n, dim) and out: (bw, n, heads*dh), f32 or bf16 (is_bf16);
 // wqkv: (heads, dim, 3*dh) in x's type, each head's q | k | v columns;
 // bias: f32 (heads, n, n).  All contiguous.  dim and dh are multiples of 16
-// (dh <= 64), n <= 64; the stack holds `group` heads (the last group may
-// hold fewer).  Launches ceil(bw / windows_per_cta) CTAs on `stream` and
-// returns cudaGetLastError() (0 on success).
+// (dh <= 64), n <= 64; the first design's stack holds `group` heads (the
+// last group may hold fewer; the strip design reads no group).  Launches
+// ceil(bw / windows_per_cta) CTAs of the design
+// vgm_stacked_softmax_attention_route names on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int vgm_stacked_softmax_attention(const void* x, const void* wqkv,
                                              const void* bias, void* out,
                                              int bw, int n, int dim,
@@ -201,7 +320,12 @@ extern "C" int vgm_stacked_softmax_attention(const void* x, const void* wqkv,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bw < 1 || n < 1 || n > kRows || dim < 16 || dim % 16 != 0 ||
       heads < 1 || dh < 16 || dh % 16 != 0 || dh > kMaxDimHead ||
-      group < 1 || group > heads || windows_per_cta < 1)
+      windows_per_cta < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (strip_route(dim, dh, is_bf16))
+    return launch_strips(x, wqkv, bias, out, bw, n, dim, heads, dh,
+                         windows_per_cta, st);
+  if (group < 1 || group > heads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return launch<__nv_bfloat16, true>(x, wqkv, bias, out, bw, n, dim, heads,

@@ -1,11 +1,14 @@
 // The strip body of the window-attention forward on the tensor cores,
 // shared by K1's strip path (window_attention_fwd.cu, one window a CTA),
 // R7's (maxvit_layer_attention.cu, a cluster of CTAs a sample-lead, each
-// running its windows one after another) and the out-projection family's
-// (outproj_attention.cu, R12, R13, R2 and R8: several windows a CTA, one
-// after another): the shared-memory plan of one 64-row window tile, and
+// running its windows one after another), the out-projection family's
+// (outproj_strips.cuh: outproj_attention.cu's R12, R13, R2 and R8 and
+// headpack_attention.cu's R5 and R6, several windows a CTA, one after
+// another) and R10's (stacked_softmax_attention.cu, the same without the
+// out-projection): the shared-memory plan of one 64-row window tile, and
 // one window's rows and attention of every head, y kept in registers and
-// handed to the caller's epilogue.
+// handed to the caller's epilogue (or, without the out-projection, each
+// head's o_h handed to it).
 //
 // bf16, dim and dh multiples of 16, dim <= 128, dh <= 32, out_dim (y's
 // width) a multiple of 16 <= 128.  The math is window_attention_body.cuh's
@@ -18,7 +21,12 @@
 // each n x n product takes its split operands (hi.hi + hi.lo + lo.hi) or
 // their high parts alone (R2's casts: the high part is the round-to-
 // nearest bf16 of the value, which is the repro's cast).  K1 and R7 take
-// rows from NormRows, the gain, the split products and out_dim = dim.
+// rows from NormRows, the gain, the split products and out_dim = dim.  A
+// fourth choice, kOutProj, is off for R10's function, R1's (attention with
+// no out-projection): no Wout_h is staged (the plan has no wo plane at
+// out_dim 0), no y is kept, and once a strip's o_h is whole in the o plane
+// its 64 threads hand its rows < n to the epilogue, 16 bytes (8 columns) a
+// thread, so that the caller's stores are coalesced vectors.
 // The design:
 //   - q|k|v = xn . Wqkv_h on mma.sync m16n8k16 tiles: warp w of the 8 owns
 //     the 16-row strip w % 4 of the tile, warps w and w + 4 share it; warp
@@ -42,9 +50,10 @@
 //     of the strip's y (out_dim columns), which stays in registers until
 //     the epilogue.
 // Each head's Wqkv_h and Wout_h are staged in shared memory by cp.async
-// ahead of use; a head costs two block barriers.  Strips wholly past n are
-// skipped; the rows n..63 of a strip that is not hold finite values and
-// never reach the epilogue.
+// ahead of use; a head costs two block barriers (without the
+// out-projection the first one's wait for Wout_h finds nothing in
+// flight).  Strips wholly past n are skipped; the rows n..63 of a strip
+// that is not hold finite values and never reach the epilogue.
 
 #pragma once
 
@@ -72,9 +81,9 @@ constexpr int kYTiles = kMaxStripDim / 16;   // 8-column tiles of half of y
 // the normalized x in bf16 (its offset and stride those of make_plan<true>,
 // so that layer_norm_rows fills it); qn|kn|v split into bf16 high and low
 // parts, the two planes of the same layout; o = P.v in bf16; the head's
-// weights Wqkv_h and Wout_h (dh x out_dim) staged in bf16.  The strides
-// keep the rows of a quad's fragment reads and of each ldmatrix on
-// distinct banks.
+// weights Wqkv_h and Wout_h (dh x out_dim; none at out_dim 0) staged in
+// bf16.  The strides keep the rows of a quad's fragment reads and of each
+// ldmatrix on distinct banks.
 struct StripPlan {
   int ldx, ldh, ldo, ldwq, ldwo;
   size_t xs, hi, lo, o, wq, wo, bytes;
@@ -86,7 +95,7 @@ __host__ __device__ StripPlan make_strip_plan(int dim, int dh, int out_dim) {
   p.ldh = 3 * dh + 8;
   p.ldo = dh + 8;
   p.ldwq = 3 * dh + 8;
-  p.ldwo = out_dim + 8;
+  p.ldwo = out_dim ? out_dim + 8 : 0;  // out_dim 0: no wo plane
   size_t off = 0;
   auto take = [&](size_t bytes) {
     const size_t at = off;
@@ -156,9 +165,13 @@ struct CopyRows {
 // dropout hash (keep_threshold 0: none).  Named barriers 1..4 are the
 // body's.  kQkGain: qn, kn times sqrt(dh) q_gamma_h, k_gamma_h (else
 // neither is read); kSplitScore, kSplitAgg: S, O from split operands (else
-// from their high parts).
+// from their high parts).  Without kOutProj (plan of out_dim 0; wout and
+// out_dim are not read) there is no y: instead, for each head h,
+// epilogue(h, r, c, v) once for each row r < n and column c < dh, c a
+// multiple of 8, v (a uint4) o_h[r][c..c+7] in bf16, each from one of the
+// strip's 64 threads, before the head's last block barrier.
 template <bool kQkGain = true, bool kSplitScore = true, bool kSplitAgg = true,
-          typename Rows, typename Epilogue>
+          bool kOutProj = true, typename Rows, typename Epilogue>
 __device__ __forceinline__ void attend_window_strips(
     unsigned char* smem, const StripPlan& plan, Rows rows, int n, int dim,
     const bf16* __restrict__ wqkv, const float* __restrict__ q_gamma,
@@ -183,7 +196,10 @@ __device__ __forceinline__ void attend_window_strips(
 
   // head 0's weights in flight while the rows fill xs
   copy_rows_async(wq_s, plan.ldwq, wqkv, 3 * dh, dim, 3 * dh, false);
-  copy_rows_async(wo_s, plan.ldwo, wout, out_dim, dh, out_dim);
+  if constexpr (kOutProj)
+    copy_rows_async(wo_s, plan.ldwo, wout, out_dim, dh, out_dim);
+  else
+    cp_async_commit();  // Wqkv_0's group
   if constexpr (std::is_same_v<Rows, CopyRows>) {
     copy_rows_async(xs, plan.ldx, rows.x, dim, n, dim);
   } else {
@@ -432,39 +448,55 @@ __device__ __forceinline__ void attend_window_strips(
       }
       strip_barrier(1 + strip);  // the strip's o is whole
 
-      // y[strip rows, this warp's columns] += o_strip . Wout_h: bf16
-      // operands, so one product is exact
-      for (int k0 = 0; k0 < dh; k0 += 16) {
-        uint32_t a[4];
-        frag_a_bf16(o_h, ldo, r0, k0, a);
+      if constexpr (kOutProj) {
+        // y[strip rows, this warp's columns] += o_strip . Wout_h: bf16
+        // operands, so one product is exact
+        for (int k0 = 0; k0 < dh; k0 += 16) {
+          uint32_t a[4];
+          frag_a_bf16(o_h, ldo, r0, k0, a);
 #pragma unroll
-        for (int j = 0; j < kYTiles; j += 2) {
-          if (j < y_tiles) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(
-                b, wo_s + (k0 + b_k) * plan.ldwo + c_y + 8 * j + b_n);
-            mma_bf16_16816(yacc[j], a, b[0], b[1]);
-            mma_bf16_16816(yacc[j + 1], a, b[2], b[3]);
+          for (int j = 0; j < kYTiles; j += 2) {
+            if (j < y_tiles) {
+              uint32_t b[4];
+              ldmatrix_x4_trans(
+                  b, wo_s + (k0 + b_k) * plan.ldwo + c_y + 8 * j + b_n);
+              mma_bf16_16816(yacc[j], a, b[0], b[1]);
+              mma_bf16_16816(yacc[j + 1], a, b[2], b[3]);
+            }
           }
+        }
+      } else {
+        // the strip's rows < n of o_h to the epilogue: its 64 threads take
+        // 8-column chunks in row order, so that a row's chunks go to
+        // neighbouring threads
+        const int chunks = dh / 8;
+        for (int e = lane + (second ? 32 : 0); e < 16 * chunks; e += 64) {
+          const int r = r0 + e / chunks;
+          const int c = 8 * (e % chunks);
+          if (r < n)
+            epilogue(h, r, c,
+                     *reinterpret_cast<const uint4*>(o_h + r * ldo + c));
         }
       }
     }
     cp_async_wait<0>();  // Wqkv_{h+1} has landed
     __syncthreads();     // qn|kn|v, o and Wout_h are free
     // Wout_{h+1} in flight until the next head's first barrier
-    if (next)
+    if (kOutProj && next)
       copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, out_dim,
                       dh, out_dim);
   }
 
   // y rows < n of this warp's columns, to the epilogue
-  if (strip < nk) {
+  if constexpr (kOutProj) {
+    if (strip < nk) {
 #pragma unroll
-    for (int j = 0; j < kYTiles; ++j) {
-      if (j < y_tiles) {
-        const int c = c_y + 8 * j + 2 * tq;
-        if (ra < n) epilogue(ra, c, yacc[j][0], yacc[j][1]);
-        if (rb < n) epilogue(rb, c, yacc[j][2], yacc[j][3]);
+      for (int j = 0; j < kYTiles; ++j) {
+        if (j < y_tiles) {
+          const int c = c_y + 8 * j + 2 * tq;
+          if (ra < n) epilogue(ra, c, yacc[j][0], yacc[j][1]);
+          if (rb < n) epilogue(rb, c, yacc[j][2], yacc[j][3]);
+        }
       }
     }
   }

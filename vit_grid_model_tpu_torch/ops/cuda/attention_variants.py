@@ -8,7 +8,9 @@ CUDA kernels under ``csrc/`` and their launch counters.
 * ``headmajor_attention`` (``headmajor_attention.cu``): R4, a group of
   heads' q|k|v at once, then a warp per query row;
 * ``stacked_softmax_attention`` (``stacked_softmax_attention.cu``): R10,
-  one softmax over a group of heads' stacked scores;
+  one softmax over a group of heads' stacked scores; in bf16 at K1's strip
+  widths on K1's strip body without its out-projection (``stacked_route``
+  names the design a launch takes);
 * ``staged_attention_core`` (``staged_attention_core.cu``): R11's core on
   head-major operands, and ``staged_attention``, R11 whole, whose staging
   around the kernel is stock PyTorch (cuBLAS), as the repro leaves it to
@@ -26,7 +28,8 @@ CUDA kernels under ``csrc/`` and their launch counters.
   takes);
 * ``headpack_attention`` (``headpack_attention.cu``): R5 and R6, the same
   function with a pack of K heads' q|k|v from one product and one
-  out-projection a pack.
+  out-projection a pack; in bf16 at K1's strip widths on the out-projection
+  kernel's strip kernel (``headpack_route``).
 
 Each takes the arguments of its plain version in ``ops/attention_variants.py``
 (plus the windows a CTA or heads a group, where the kernel has them).  For
@@ -65,8 +68,12 @@ crosshead_launches = 0        # R3
 outproj_launches: Counter = Counter()
 outproj_route_launches: Counter = Counter()
 OUTPROJ_ROUTES = ("first", "strip")
-# R5 and R6's kernel, by (k_pack, two_pass, windows_per_cta)
+# R5 and R6's kernel, by (k_pack, two_pass, windows_per_cta), and by the
+# design it took; R10's by the design it took (as OUTPROJ_ROUTES names the
+# route of each)
 headpack_launches: Counter = Counter()
+headpack_route_launches: Counter = Counter()
+stacked_route_launches: Counter = Counter()
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
@@ -78,6 +85,8 @@ def reset_launches() -> None:
     outproj_launches.clear()
     outproj_route_launches.clear()
     headpack_launches.clear()
+    headpack_route_launches.clear()
+    stacked_route_launches.clear()
     perhead_weight_launches = headmajor_launches = stacked_launches = 0
     staged_core_launches = layer_launches = crosshead_launches = 0
 
@@ -205,22 +214,27 @@ def _pick_group(smem_bytes, dim: int, dh: int, heads: int, is_bf16: int,
 
 def _launch_grouped(name: str, entry: str, x: Tensor, wqkv: Tensor,
                     bias: Tensor, heads_per_group: Optional[int], most: int,
-                    ctas_per_sm: int) -> Tensor:
-    """Launch R4's or R10's kernel (library entry ``entry``), ``heads_per_
-    group`` heads a step (default: ``_pick_group``), 8 windows a CTA."""
+                    ctas_per_sm: int, strip: bool = False) -> Tensor:
+    """Launch R4's, R3's or R10's kernel (library entry ``entry``),
+    ``heads_per_group`` heads a step (default: ``_pick_group``), 8 windows
+    a CTA; ``strip``: the launch takes R10's strip design, which reads no
+    group, so none is picked (0 is passed)."""
     heads = bias.shape[0]
     w_heads = _per_head(wqkv, heads)
     bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
     is_bf16 = int(x.dtype == torch.bfloat16)
     lib = library.load()
     smem_bytes = getattr(lib, entry + "_smem_bytes")
-    group = heads_per_group or _pick_group(smem_bytes, dim, dh, heads,
-                                           is_bf16, most, ctas_per_sm)
-    if not (1 <= group <= heads
-            and smem_bytes(dim, dh, group, is_bf16) <= MAX_SMEM):
-        raise ValueError(f"{name}: {group} heads of dim={dim}, dim_head={dh} "
-                         f"a group do not fit in shared memory or {heads} "
-                         "heads")
+    if strip:
+        group = 0
+    else:
+        group = heads_per_group or _pick_group(smem_bytes, dim, dh, heads,
+                                               is_bf16, most, ctas_per_sm)
+        if not (1 <= group <= heads
+                and smem_bytes(dim, dh, group, is_bf16) <= MAX_SMEM):
+            raise ValueError(f"{name}: {group} heads of dim={dim}, dim_head="
+                             f"{dh} a group do not fit in shared memory or "
+                             f"{heads} heads")
     out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
     library.check(getattr(lib, entry)(
         x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), out.data_ptr(), bw,
@@ -248,21 +262,36 @@ def headmajor_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
     return out
 
 
+def stacked_route(n: int, dim: int, dh: int, dtype: torch.dtype) -> str:
+    """The design a launch of R10's kernel at these widths takes, as the
+    kernel's own ``vgm_stacked_softmax_attention_route`` says: "strip"
+    (bf16, dim and dim_head multiples of 16, dim <= 128, dim_head <= 32)
+    or "first"."""
+    return OUTPROJ_ROUTES[library.load().vgm_stacked_softmax_attention_route(
+        n, dim, dh, int(dtype == torch.bfloat16))]
+
+
 def stacked_softmax_attention(x: Tensor, wqkv: Tensor,
                               bias: Tensor) -> Tensor:
     """R10: R1's function (its arguments) with one softmax pass over a group
     of heads' stacked f32 scores; the group is the largest power of two
-    (up to 8 heads) that fits: 4 in bf16, 2 in f32 at the repro's
-    widths."""
+    (up to 8 heads) that fits: 4 in bf16 (off the strip widths), 2 in f32
+    at the repro's widths.  In bf16 at K1's strip widths
+    (``stacked_route``) the kernel runs K1's strip body without its
+    out-projection, where one softmax over a stack is each row's own: no
+    group is picked there."""
     heads = bias.shape[0]
     if x.device.type == "cpu":
         return plain.perhead_qkv_attention(x, wqkv, bias, heads,
                                            wqkv.shape[1] // (3 * heads))
+    route = stacked_route(x.shape[1], x.shape[-1],
+                          wqkv.shape[1] // (3 * heads), x.dtype)
     out = _launch_grouped("stacked_softmax_attention",
                           "vgm_stacked_softmax_attention", x, wqkv, bias,
-                          None, 8, 1)
+                          None, 8, 1, route == "strip")
     global stacked_launches
     stacked_launches += 1
+    stacked_route_launches[route] += 1
     return out
 
 
@@ -518,6 +547,17 @@ def _pick_sub_pack(smem_bytes, dim: int, dh: int, out_dim: int, k_pack: int,
     return 0
 
 
+def headpack_route(n: int, dim: int, dh: int, out_dim: int,
+                   dtype: torch.dtype) -> str:
+    """The design a launch of the head-pack kernel at these widths takes,
+    as the kernel's own ``vgm_headpack_attention_route`` says: "strip" (the
+    out-projection kernel's strip kernel: bf16, dim, dim_head and out_dim
+    multiples of 16, dim <= 128, dim_head <= 32, out_dim <= 128) or
+    "first"."""
+    return OUTPROJ_ROUTES[library.load().vgm_headpack_attention_route(
+        n, dim, dh, out_dim, int(dtype == torch.bfloat16))]
+
+
 def headpack_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
                        k_pack: int, two_pass: bool,
                        windows_per_cta: int = WINDOWS_PER_CTA,
@@ -533,6 +573,10 @@ def headpack_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
     the pack's scores first, then one softmax and P.v; each CTA runs
     ``windows_per_cta`` windows (the repros' blk).  As many of a pack's
     heads' q|k|v as fit are in shared memory at once (``_pick_sub_pack``).
+    In bf16 at K1's strip widths (``headpack_route``) the kernel launches
+    the out-projection kernel's strip kernel, whose output is bit-identical
+    to ``outproj_attention``'s at any windows a CTA: ``k_pack`` and
+    ``two_pass`` then pick nothing, and are still checked and counted.
     Returns (Bw, n, out_dim) in ``out_dtype``."""
     heads = bias.shape[0]
     if w.dim() == 4:
@@ -567,10 +611,12 @@ def headpack_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
         raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
     is_bf16 = int(x.dtype == torch.bfloat16)
     lib = library.load()
+    route = headpack_route(n, dim, dh, out_dim, x.dtype)
     smem_bytes = lib.vgm_headpack_attention_smem_bytes
-    sub_pack = _pick_sub_pack(smem_bytes, dim, dh, out_dim, k_pack, two_pass,
-                              is_bf16)
-    if not sub_pack:
+    sub_pack = (0 if route == "strip" else   # the strip design reads none
+                _pick_sub_pack(smem_bytes, dim, dh, out_dim, k_pack,
+                               two_pass, is_bf16))
+    if route == "first" and not sub_pack:
         raise ValueError(
             f"{name}: {k_pack} heads a pack of dim={dim}, dim_head={dh}, "
             f"out_dim={out_dim} need "
@@ -584,4 +630,5 @@ def headpack_attention(x: Tensor, w: Tensor, bias: Tensor, wout: Tensor, *,
         int(two_pass), windows_per_cta, is_bf16,
         int(out_dtype == torch.bfloat16), library.stream(x)), name)
     headpack_launches[(k_pack, two_pass, windows_per_cta)] += 1
+    headpack_route_launches[route] += 1
     return out

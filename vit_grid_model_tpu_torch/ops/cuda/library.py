@@ -140,6 +140,16 @@ def load() -> ctypes.CDLL:
         lib.vgm_outproj_attention_occupancy.restype = ctypes.c_int
         lib.vgm_headpack_attention_smem_bytes.argtypes = [i32] * 7
         lib.vgm_headpack_attention_smem_bytes.restype = ctypes.c_long
+        lib.vgm_headpack_attention_route.argtypes = [i32] * 5
+        lib.vgm_headpack_attention_occupancy.argtypes = [i32] * 8 + [ptr]
+        lib.vgm_stacked_softmax_attention_route.argtypes = [i32] * 4
+        lib.vgm_stacked_softmax_attention_occupancy.argtypes = ([i32] * 5
+                                                                + [ptr])
+        for fn in (lib.vgm_headpack_attention_route,
+                   lib.vgm_headpack_attention_occupancy,
+                   lib.vgm_stacked_softmax_attention_route,
+                   lib.vgm_stacked_softmax_attention_occupancy):
+            fn.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 8
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_occupancy.argtypes = [i32] * 9

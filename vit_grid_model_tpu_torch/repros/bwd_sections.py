@@ -35,7 +35,7 @@ import ctypes
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -265,13 +265,16 @@ __device__ void wmma_sink(int M, int N, int K, const __nv_bfloat16* A,
             "noslot_stamp": _wrap(_replace(stamped, noslot))}
 
 
-def build(sources: Dict[str, str],
-          directory: Path = BUILD) -> Dict[str, Path]:
+def build(sources: Dict[str, str], directory: Path = BUILD,
+          extra_flags: Tuple[str, ...] = (),
+          logs: Optional[Dict[str, str]] = None) -> Dict[str, Path]:
     """nvcc each source into a shared library in ``directory``, all at
-    once."""
+    once, with ``extra_flags`` after the usual ones; each build's compiler
+    output goes into ``logs`` when it is given."""
     directory.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-I", str(library.CSRC)]
+             "-Xcompiler", "-fPIC", "-shared", "-I", str(library.CSRC),
+             *extra_flags]
     libs, procs = {}, []
     for name, text in sources.items():
         src = directory / f"{name}.cu"
@@ -284,6 +287,8 @@ def build(sources: Dict[str, str],
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{out}")
+        if logs is not None:
+            logs[name] = out
     return libs
 
 

@@ -236,7 +236,7 @@ def one_cta_variant(fwd: str) -> str:
         ("b, wo_s + (k0 + b_k) * plan.ldwo",
          "b, wo_h + (k0 + b_k) * plan.ldwo"),
         ("""    // Wout_{h+1} in flight until the next head's first barrier
-    if (next)
+    if (kOutProj && next)
       copy_rows_async(wo_s, plan.ldwo, wout + (h + 1) * wo_elems, out_dim,
                       dh, out_dim);
 """, ""),

@@ -97,9 +97,9 @@ extern "C" int sections_reset() {
   return (int)cudaMemcpyToSymbol(g_sections, z, sizeof(z));
 }
 '''
-# the occupancy export of a source that has only the first design (the
-# package's own, vgm_outproj_attention_occupancy, has the same interface)
-_FIRST_OCCUPANCY = r'''
+# registers, local bytes, shared memory and CTAs an SM of a kernel, for the
+# occupancy exports a section tool appends to an earlier design's source
+_OCCUPANCY_OF = r'''
 template <typename K>
 int sections_occupancy_of(K kernel, size_t smem, int* out) {
   cudaFuncAttributes a;
@@ -118,6 +118,10 @@ int sections_occupancy_of(K kernel, size_t smem, int* out) {
   out[3] = blocks;
   return 0;
 }
+'''
+# the occupancy export of a source that has only the first design (the
+# package's own, vgm_outproj_attention_occupancy, has the same interface)
+_FIRST_OCCUPANCY = _OCCUPANCY_OF + r'''
 extern "C" int vgm_outproj_attention_occupancy(
     int n, int dim, int dh, int out_dim, int group, int cat_heads,
     int bf16_score, int bf16_agg, int is_bf16, int* out) {
@@ -160,14 +164,15 @@ def is_strip_design(text: str) -> bool:
     return STRIP_KERNEL in text
 
 
-def strip_stamped(text: str) -> str:
+def strip_stamped(text: str, kernel_name: str = STRIP_KERNEL) -> str:
     """The strip design (its headers inlined) with a stamp after each of the
     strip body's sections; the n x n section ends at the strips' named
     barrier, after which the stamped copy adds a block barrier.  The kernel
+    ``kernel_name`` (whose call of the body ends in a line ``store);``)
     opens the counts and flushes them once a CTA."""
     f = text.split("\n")
     body = _find(f, "__device__ __forceinline__ void attend_window_strips(")
-    kernel = _find(f, f"    {STRIP_KERNEL}(")
+    kernel = _find(f, f"    {kernel_name}(")
     after = {
         _find(f, "  __syncthreads();", _find(f, "copy_rows_async(xs, plan.ldx",
                                              body)): "STAMP(0);",
