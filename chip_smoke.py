@@ -1605,47 +1605,82 @@ def mbconv_share(dev, card):
           flush=True)
 
 
-# R1/R14 comparison cases: (name, Bw, n, dim, heads, dim_head, dtype); Bw 37
-# leaves a ragged last tile at 8 and at 16 windows a CTA
+# R1/R14 comparison cases: (name, Bw, n, dim, heads, dim_head, dtype,
+# head-0 bias offset); Bw 37 leaves a ragged last tile at 8 and at 16
+# windows a CTA, n 64, 49 and 9 fill the 64-row tile wholly, ragged and
+# mostly with padding, and -200 puts head 0's scores ~200 below head 1's
 PERHEAD_CASES = [
-    ("repro Bw=2,880", 2880, 56, 128, 32, 32, "bfloat16"),
-    ("f32 Bw=40", 40, 56, 128, 32, 32, "float32"),
-    ("ragged Bw=37", 37, 56, 128, 32, 32, "bfloat16"),
-    ("3 heads x 16", 37, 56, 48, 3, 16, "float32"),
-    ("3 heads x 16", 37, 56, 48, 3, 16, "bfloat16"),
+    ("repro Bw=2,880", 2880, 56, 128, 32, 32, "bfloat16", 0.0),
+    ("f32 Bw=40", 40, 56, 128, 32, 32, "float32", 0.0),
+    ("ragged Bw=37", 37, 56, 128, 32, 32, "bfloat16", 0.0),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "float32", 0.0),
+    ("3 heads x 16", 37, 56, 48, 3, 16, "bfloat16", 0.0),
+    ("n=64", 37, 64, 128, 32, 32, "bfloat16", 0.0),
+    ("n=49", 37, 49, 128, 32, 32, "bfloat16", 0.0),
+    ("n=9", 37, 9, 128, 32, 32, "bfloat16", 0.0),
+    ("n=9 3 x 16", 37, 9, 48, 3, 16, "bfloat16", 0.0),
+    ("diverging", 40, 56, 128, 32, 32, "bfloat16", -200.0),
+    ("diverging", 40, 56, 128, 32, 32, "float32", -200.0),
 ]
+
+
+def perhead_design(n, dim, dh, dtype_name):
+    """The design the per-head kernel (R1, R14, R9) takes at these widths:
+    the wgmma design in bf16 at dim_head 16 or 32, dim a multiple of 16 up
+    to 176 (dim_head 32) or 288 (16), n <= 64; else the first design."""
+    widest = 176 if dh == 32 else 288
+    return ("wgmma" if dtype_name == "bfloat16" and dh in (16, 32)
+            and dim % 16 == 0 and dim <= widest and n <= 64 else "first")
+
+
+def launched_design(av, before, want, launches, what):
+    """Raises unless the per-head kernel's launches since ``before`` (a
+    copy of ``perhead_route_launches``) are ``launches`` on ``want``."""
+    took = {d: c - before.get(d, 0) for d, c in
+            av.perhead_route_launches.items() if c > before.get(d, 0)}
+    if took != {want: launches}:
+        raise AssertionError(f"{what}: launches {took}, not {launches} on "
+                             f"the {want} design")
 
 
 def perhead_vs_plain(dev):
     """Phase 8a: the R1/R14 kernel against its plain version at 8 and 16
-    windows a CTA.  Returns {windows a CTA: max|kernel - plain|} at Bw
-    2,880 in bf16."""
+    windows a CTA, each launch on the design ``perhead_design`` names.
+    Returns {windows a CTA: max|kernel - plain|} at Bw 2,880 in bf16."""
     import torch
 
-    from vit_grid_model_tpu_torch.ops.attention_variants import (
-        perhead_qkv_attention)
-    from vit_grid_model_tpu_torch.ops.cuda.attention_variants import (
-        perhead_attention)
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
     from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
 
     report = {}
-    for name, bw, n, dim, heads, dh, dtype_name in PERHEAD_CASES:
+    for name, bw, n, dim, heads, dh, dtype_name, offset in PERHEAD_CASES:
         dtype = getattr(torch, dtype_name)
         x, wqkv, bias = repro.inputs(bw, dtype, dev, SEED, n=n, dim=dim,
                                      heads=heads, dim_head=dh)
+        bias[0] += offset
+        want = perhead_design(n, dim, dh, dtype_name)
+        if av.perhead_route(n, dim, dh, dtype) != want:
+            raise AssertionError(f"{name} {dtype_name}: the kernel routes to "
+                                 f"{av.perhead_route(n, dim, dh, dtype)}, "
+                                 f"not {want}")
         with torch.inference_mode():
-            ref = perhead_qkv_attention(x, wqkv, bias, heads, dh)
+            ref = plain.perhead_qkv_attention(x, wqkv, bias, heads, dh)
             for wpc in repro.WINDOWS_PER_CTA:
-                ours = perhead_attention(x, wqkv, bias, wpc)
-                again = perhead_attention(x, wqkv, bias, wpc)
+                before = dict(av.perhead_route_launches)
+                ours = av.perhead_attention(x, wqkv, bias, wpc)
+                again = av.perhead_attention(x, wqkv, bias, wpc)
                 torch.cuda.synchronize()
+                launched_design(av, before, want, 2,
+                                f"{name} {dtype_name} wpc={wpc}")
                 err, scale = kernel_errors(ours, again, ref,
                                              f"{name} wpc={wpc}")
                 tol = TOLERANCE[dtype_name]
-                print(f"{name:16s} {dtype_name:8s} Bw={bw:4d} wpc={wpc:2d}: "
-                      f"max|d|={err:.3e} max|plain|={scale:.3e} "
-                      f"rel={err / scale:.3e} (tol {tol:g}); second launch "
-                      "bit-identical", flush=True)
+                print(f"{name:16s} {dtype_name:8s} Bw={bw:4d} n={n:2d} "
+                      f"wpc={wpc:2d}: max|d|={err:.3e} max|plain|="
+                      f"{scale:.3e} rel={err / scale:.3e} (tol {tol:g}); "
+                      f"second launch bit-identical; {want} design",
+                      flush=True)
                 if not err <= tol * scale:
                     raise AssertionError(f"{name} {dtype_name} wpc={wpc}: "
                                          f"kernel differs from plain by {err}")
@@ -1743,11 +1778,13 @@ VARIANT_CASES = [
     ("diverging", 40, 56, 128, 32, 32, "bfloat16", -200.0),
     ("diverging", 40, 56, 128, 32, 32, "float32", -200.0),
 ]
-# R10's strip design at n 64 and 9 (three of the tile's four 16-row strips
-# wholly padding), at the repro's Bw and a ragged one; the same fields
+# R10's strip design and R9's wgmma design at n 64, 49 and 9 (three of the
+# tile's four 16-row strips wholly padding), at the repro's Bw and a ragged
+# one; the same fields
 STACKED_CASES = [
     ("n=64", 2880, 64, 128, 32, 32, "bfloat16", 0.0),
     ("n=64 ragged", 37, 64, 128, 32, 32, "bfloat16", 0.0),
+    ("n=49 ragged", 37, 49, 128, 32, 32, "bfloat16", 0.0),
     ("n=9", 2880, 9, 128, 32, 32, "bfloat16", 0.0),
     ("n=9 diverging", 37, 9, 128, 32, 32, "bfloat16", -200.0),
 ]
@@ -1796,9 +1833,10 @@ def stacked_design(n, dim, dh, dtype_name):
 
 def variants_vs_plain(dev):
     """Phase 10a: R4's, R10's and R11's kernels, R11 whole and R9's route
-    against their plain versions, R10 also at n 64 and 9, each of R10's
-    launches on the design ``stacked_design`` names.  Returns {route:
-    max|kernel - plain|} at Bw 2,880 and n 56 in bf16."""
+    against their plain versions, R10 and R9 also at n 64, 49 and 9, each
+    of R10's and R9's launches on the design ``stacked_design`` or
+    ``perhead_design`` names.  Returns {route: max|kernel - plain|} at Bw
+    2,880 and n 56 in bf16."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
@@ -1806,6 +1844,7 @@ def variants_vs_plain(dev):
 
     report = {}
     stacked = "stacked_softmax_attention"
+    r9 = "perhead_weight_attention"
     for name, bw, n, dim, heads, dh, dtype_name, offset in (VARIANT_CASES
                                                             + STACKED_CASES):
         dtype = getattr(torch, dtype_name)
@@ -1816,15 +1855,21 @@ def variants_vs_plain(dev):
         with torch.inference_mode():
             routes = variant_routes(x, wqkv, bias, heads, dh)
             if n != repro.N_PAD:
-                routes = {stacked: routes[stacked]}
+                routes = {stacked: routes[stacked], r9: routes[r9]}
             for route, (kernel, plain) in routes.items():
                 ref = plain()
                 before = dict(av.stacked_route_launches)
+                before_r9 = dict(av.perhead_route_launches)
                 ours = kernel()
                 again = kernel()
                 torch.cuda.synchronize()
                 err, scale = kernel_errors(ours, again, ref, f"{name} {route}")
                 design = ""
+                if route == r9:
+                    want = perhead_design(n, dim, dh, dtype_name)
+                    launched_design(av, before_r9, want, 2,
+                                    f"{name} {dtype_name} {route}")
+                    design = f"; {want} design"
                 if route == stacked:
                     want = stacked_design(n, dim, dh, dtype_name)
                     took = {d: c - before.get(d, 0) for d, c in
@@ -2770,10 +2815,22 @@ def run(root: str) -> int:
     ph_err = perhead_vs_plain(dev)
 
     phase("8b", "R1/R14 path: the per-head attention repro")
+    av = attention_variants
+
+    def wgmma_design(name, counts):
+        """The repro's launches and the per-head kernel's wgmma-design
+        launches; raises when one took the first design at the repros' bf16
+        widths."""
+        if av.perhead_route_launches["first"]:
+            raise AssertionError(f"{av.perhead_route_launches['first']} "
+                                 f"per-head launches of {name} took the "
+                                 "first design at the repros' bf16 widths")
+        return {**counts, "wgmma design": av.perhead_route_launches["wgmma"]}
+
     ph_launches, ph_results = repro_path(
-        repro_perhead, [attention_variants], lambda: {
-            wpc: attention_variants.perhead_launches[wpc]
-            for wpc in repro_perhead.WINDOWS_PER_CTA})
+        repro_perhead, [attention_variants], lambda: wgmma_design(
+            "R1/R14", {wpc: av.perhead_launches[wpc]
+                       for wpc in repro_perhead.WINDOWS_PER_CTA}))
 
     phase("9a", "R7 MaxViT layer megakernel vs plain on the card")
     layer_err = layer_vs_plain(dev)
@@ -2793,7 +2850,6 @@ def run(root: str) -> int:
     variant_err = variants_vs_plain(dev)
 
     phase("10b", "R4, R10, R9 and R11 paths: their repros")
-    av = attention_variants
     variant_runs = {}
 
     def strip_design(name, counts, by_route):
@@ -2813,10 +2869,12 @@ def run(root: str) -> int:
              lambda: av.perhead_weight_launches),
             (repro_r11, "staged_attention_core",
              lambda: av.staged_core_launches)):
-        counts = (lambda: {route: count()})
+        # R1's kernel runs beside each of these repros: every per-head
+        # launch takes the wgmma design
+        counts = (lambda: wgmma_design(route, {route: count()}))
         if module is repro_r10:
-            counts = (lambda: strip_design(route, {route: count()},
-                                           av.stacked_route_launches))
+            counts = (lambda: wgmma_design(route, strip_design(
+                route, {route: count()}, av.stacked_route_launches)))
         variant_runs[route] = repro_path(module, [av], counts)
 
     phase("11a", "R3 and the out-projection kernel (R12, R13, R2, R8) vs "
@@ -3056,11 +3114,23 @@ def run(root: str) -> int:
                         mosaic + replaces, launches, headpack_err[k],
                         r[version][0], r["plain"][0],
                         repro_r5.bound_ms(2880), None))
+    # the design each entry ran, where its kernel has more than one: K1's
+    # and K3's bf16 strip paths, and the routes the wrappers count (phases
+    # 8b-12b refuse any other design at the repros' bf16 widths)
+    designs = {"window_attention_fwd": "strip", "window_attention_bwd":
+               "strip", "perhead_attention_w8": "wgmma",
+               "perhead_attention_w16": "wgmma",
+               "perhead_weight_attention": "wgmma",
+               "maxvit_layer_attention": "strip",
+               "stacked_softmax_attention": "strip"}
+    designs.update({k[0]: "strip" for k in kernels
+                    if k[0].startswith(("outproj_", "headpack_"))})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-         "bound_by": bound[1], "library_ms": library}
+         "bound_by": bound[1], "library_ms": library,
+         "design": designs.get(name, "only")}
         for name, source, replaces, launches, e, ms, plain_ms, bound, library
         in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -340,6 +340,54 @@ def test_perhead_attention_matches_plain(bw, n, dim, heads, dim_head, dtype,
     assert err <= TOL[dtype] * scale, err
 
 
+@pytest.mark.parametrize("wpc", [8, 16, 3])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset", [
+    (37, 64, 128, 32, 32, 0.0),      # the whole 64-row tile
+    (37, 49, 128, 32, 32, 0.0),      # a ragged last row group
+    (37, 9, 48, 3, 16, 0.0),         # mostly padding, m64n48k16's qkv
+    (40, 56, 128, 32, 32, -200.0),   # head 0's scores ~200 below head 1's
+    (1, 56, 176, 2, 32, 0.0)])       # the widest dim at dim_head 32
+def test_perhead_wgmma_design_matches_plain(bw, n, dim, heads, dim_head,
+                                            offset, wpc):
+    """The wgmma design (bf16) at every launch, against the plain version
+    within 2e-2 of max|plain|; a second launch bit-identical."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    dtype = torch.bfloat16
+    x, wqkv, bias = repro.inputs(bw, dtype, torch.device("cuda"), 0, n=n,
+                                 dim=dim, heads=heads, dim_head=dim_head)
+    bias[0] += offset
+    assert av.perhead_route(n, dim, dim_head, dtype) == "wgmma"
+    before = dict(av.perhead_route_launches)
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, heads, dim_head)
+        ours = av.perhead_attention(x, wqkv, bias, wpc)
+        again = av.perhead_attention(x, wqkv, bias, wpc)
+    torch.cuda.synchronize()
+    chip_smoke.launched_design(av, before, "wgmma", 2, "perhead")
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "perhead")
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_perhead_route_is_named_by_the_kernels_export():
+    """``perhead_route`` (the kernel's own export) agrees with
+    ``chip_smoke.perhead_design`` at and beyond the widths it documents."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+
+    for n, dim, dh in ((56, 128, 32), (64, 176, 32), (64, 192, 32),
+                       (64, 288, 16), (64, 304, 16), (9, 48, 16),
+                       (56, 128, 64), (56, 40, 16), (1, 16, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            want = chip_smoke.perhead_design(n, dim, dh,
+                                             str(dtype).split(".")[-1])
+            assert av.perhead_route(n, dim, dh, dtype) == want, (n, dim, dh)
+
+
 def test_perhead_attention_rejects_shapes_out_of_range():
     _need_cuda()
     from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av

@@ -56,6 +56,7 @@ assert (attention_variants.headmajor_launches
         == attention_variants.crosshead_launches == 0)
 assert attention_variants.perhead_launches[8] == 0
 assert attention_variants.perhead_launches[16] == 0
+assert sum(attention_variants.perhead_route_launches.values()) == 0
 assert sum(attention_variants.outproj_launches.values()) == 0
 assert sum(attention_variants.headpack_launches.values()) == 0
 print(len(names))

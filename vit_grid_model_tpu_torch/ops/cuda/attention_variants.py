@@ -2,7 +2,8 @@
 CUDA kernels under ``csrc/`` and their launch counters.
 
 * ``perhead_attention`` (``perhead_attention.cu``): R1, and R14 at 16
-  windows a CTA;
+  windows a CTA; in bf16 at dim_head 16 or 32 on warpgroup MMA
+  (``perhead_route`` names the design a launch takes);
 * ``perhead_weight_attention`` (the same kernel): R9, from its (3, heads,
   dim, dim_head) weight;
 * ``headmajor_attention`` (``headmajor_attention.cu``): R4, a group of
@@ -44,6 +45,7 @@ from collections import Counter
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from vit_grid_model_tpu_torch.ops import attention_variants as plain
@@ -74,6 +76,11 @@ OUTPROJ_ROUTES = ("first", "strip")
 headpack_launches: Counter = Counter()
 headpack_route_launches: Counter = Counter()
 stacked_route_launches: Counter = Counter()
+# R1, R14 and R9's kernel by the design it took, as PERHEAD_ROUTES names
+# the kernel's route
+perhead_route_launches: Counter = Counter()
+PERHEAD_ROUTES = ("first", "wgmma")
+BIAS_LD = 72                  # floats a bias row the wgmma design reads
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
@@ -82,6 +89,7 @@ def reset_launches() -> None:
     global perhead_weight_launches, headmajor_launches, stacked_launches
     global staged_core_launches, layer_launches, crosshead_launches
     perhead_launches.clear()
+    perhead_route_launches.clear()
     outproj_launches.clear()
     outproj_route_launches.clear()
     headpack_launches.clear()
@@ -144,6 +152,26 @@ def _per_head(wqkv: Tensor, heads: int) -> Tensor:
             .reshape(heads, dim, 3 * dh).contiguous())
 
 
+def perhead_route(n: int, dim: int, dh: int, dtype: torch.dtype) -> str:
+    """The design a launch of the per-head kernel at these widths takes, as
+    the kernel's own ``vgm_perhead_attention_route`` says: "wgmma" (bf16,
+    dim_head 16 or 32, dim a multiple of 16 up to 176 at dim_head 32 and
+    288 at 16, n <= 64) or "first"."""
+    return PERHEAD_ROUTES[library.load().vgm_perhead_attention_route(
+        n, dim, dh, int(dtype == torch.bfloat16))]
+
+
+def _wgmma_operands(w_heads: Tensor, bias: Tensor):
+    """The per-head weights (heads, dim, 3 dh) and the bias (heads, n, n)
+    in the layouts the wgmma design copies whole, a head at a time: each
+    head's Wqkv_h^T (3 dh x dim) as 8 x 8 core matrices, (heads, 3 dh / 8,
+    dim / 8, 8, 8), and the bias rows padded to ``BIAS_LD`` floats."""
+    heads, dim, qkv = w_heads.shape
+    tiles = (w_heads.transpose(1, 2).reshape(heads, qkv // 8, 8, dim // 8, 8)
+             .permute(0, 1, 3, 2, 4).contiguous())
+    return tiles, F.pad(bias, (0, BIAS_LD - bias.shape[-1])).contiguous()
+
+
 def _launch_perhead(name: str, x: Tensor, w_heads: Tensor, bias: Tensor,
                     windows_per_cta: int) -> Tensor:
     bw, n, dim, heads, dh = _check_rows(name, x, w_heads, bias)
@@ -151,13 +179,22 @@ def _launch_perhead(name: str, x: Tensor, w_heads: Tensor, bias: Tensor,
         raise ValueError(f"{name}: windows_per_cta={windows_per_cta} (>= 1)")
     is_bf16 = int(x.dtype == torch.bfloat16)
     lib = library.load()
-    if lib.vgm_perhead_attention_smem_bytes(dim, dh, is_bf16) > MAX_SMEM:
-        raise ValueError(f"{name}: dim={dim}, dim_head={dh} do not fit in "
-                         "shared memory")
+    route = perhead_route(n, dim, dh, x.dtype)
     out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
-    library.check(lib.vgm_perhead_attention(
-        x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(), out.data_ptr(), bw,
-        n, dim, heads, dh, windows_per_cta, is_bf16, library.stream(x)), name)
+    if route == "wgmma":
+        tiles, rows = _wgmma_operands(w_heads, bias)
+        library.check(lib.vgm_perhead_attention_wgmma(
+            x.data_ptr(), tiles.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            bw, n, dim, heads, dh, windows_per_cta, library.stream(x)), name)
+    else:
+        if lib.vgm_perhead_attention_smem_bytes(dim, dh, is_bf16) > MAX_SMEM:
+            raise ValueError(f"{name}: dim={dim}, dim_head={dh} do not fit "
+                             "in shared memory")
+        library.check(lib.vgm_perhead_attention(
+            x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), bw, n, dim, heads, dh, windows_per_cta, is_bf16,
+            library.stream(x)), name)
+    perhead_route_launches[route] += 1
     return out
 
 
@@ -165,7 +202,8 @@ def perhead_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
                       windows_per_cta: int) -> Tensor:
     """R1's per-head attention of (Bw, n, dim) ``x`` with ``wqkv`` (dim,
     3 * heads * dh) in R1's q | k | v layout and ``bias`` (heads, n, n) f32;
-    each CTA runs ``windows_per_cta`` windows (8 is R1, 16 is R14)."""
+    each CTA runs ``windows_per_cta`` windows (8 is R1, 16 is R14) on the
+    design ``perhead_route`` names."""
     heads = bias.shape[0]
     if x.device.type == "cpu":
         return plain.perhead_qkv_attention(x, wqkv, bias, heads,
@@ -180,7 +218,8 @@ def perhead_weight_attention(x: Tensor, w4: Tensor, bias: Tensor) -> Tensor:
     """R9: R1's function from the weight R9 hands its kernel, ``w4`` (3,
     heads, dim, dh) = R1's wqkv split by (q|k|v, head).  It is rearranged
     once into the per-head kernel's (heads, dim, 3 * dh) slices, which the
-    kernel runs at 8 windows a CTA: that kernel is R9's structure."""
+    kernel runs at 8 windows a CTA, as R1's launch: each head's weight slice
+    serves the CTA's windows, R9's structure."""
     _, heads, dim, dh = w4.shape
     if x.device.type == "cpu":
         return plain.perhead_qkv_attention(

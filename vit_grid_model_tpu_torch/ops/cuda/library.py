@@ -127,6 +127,13 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.vgm_perhead_attention_smem_bytes.argtypes = [i32] * 3
         lib.vgm_perhead_attention_smem_bytes.restype = ctypes.c_long
+        lib.vgm_perhead_attention_wgmma.argtypes = ([ptr] * 4 + [i32] * 6
+                                                    + [ptr])
+        lib.vgm_perhead_attention_wgmma.restype = ctypes.c_int
+        lib.vgm_perhead_attention_route.argtypes = [i32] * 4
+        lib.vgm_perhead_attention_route.restype = ctypes.c_int
+        lib.vgm_perhead_attention_occupancy.argtypes = [i32] * 4 + [ptr]
+        lib.vgm_perhead_attention_occupancy.restype = ctypes.c_int
         for fn in (lib.vgm_headmajor_attention_smem_bytes,
                    lib.vgm_stacked_softmax_attention_smem_bytes,
                    lib.vgm_crosshead_norm_attention_smem_bytes):
