@@ -1633,11 +1633,42 @@ def perhead_design(n, dim, dh, dtype_name):
             and dim % 16 == 0 and dim <= widest and n <= 64 else "first")
 
 
-def launched_design(av, before, want, launches, what):
-    """Raises unless the per-head kernel's launches since ``before`` (a
-    copy of ``perhead_route_launches``) are ``launches`` on ``want``."""
-    took = {d: c - before.get(d, 0) for d, c in
-            av.perhead_route_launches.items() if c > before.get(d, 0)}
+def wgmma_plan_bytes(n, dim, dh, buffers=3, warpgroups=3,
+                     indicator_norm=False):
+    """Shared memory a CTA of the per-head kernel's wgmma body takes (its
+    ``make_wgmma_plan``): ``buffers`` head buffers of Wqkv_h^T tiles and
+    bias rows (72 floats a row), each warpgroup's x and four 64 x dh
+    operand planes, R3's indicator, an mbarrier and a counter a buffer,
+    each part 128-byte aligned.  R4's and R3's layout is the default."""
+    def a128(b):
+        return (b + 127) // 128 * 128
+
+    off = buffers * (a128(6 * dh * dim) + a128(288 * n))
+    off += warpgroups * a128(128 * dim + 512 * dh)
+    off += a128(32 * dh) if indicator_norm else 0
+    return a128(off + buffers * 12)
+
+
+def grouped_design(n, dim, dh, dtype_name, group=2, indicator_norm=False):
+    """The design R4's (and, with ``indicator_norm``, R3's) kernel takes at
+    these widths and heads a staged x: the wgmma design in bf16 at dim_head
+    16 or 32, dim a multiple of 16, n <= 64, group 1 or 2, while its plan
+    (three head buffers and three warpgroups, R3's indicator) fits a CTA's
+    232,448 B: dim up to 128 at dim_head 32 and 224 at 16 at every n;
+    else the first design."""
+    return ("wgmma" if dtype_name == "bfloat16" and dh in (16, 32)
+            and dim % 16 == 0 and 1 <= n <= 64 and group in (1, 2)
+            and wgmma_plan_bytes(n, dim, dh, indicator_norm=indicator_norm)
+            <= 232448 else "first")
+
+
+def launched_design(av, before, want, launches, what, counter=None):
+    """Raises unless a kernel's launches since ``before`` (a copy of
+    ``counter``, by default ``perhead_route_launches``) are ``launches`` on
+    ``want``."""
+    counter = av.perhead_route_launches if counter is None else counter
+    took = {d: c - before.get(d, 0) for d, c in counter.items()
+            if c > before.get(d, 0)}
     if took != {want: launches}:
         raise AssertionError(f"{what}: launches {took}, not {launches} on "
                              f"the {want} design")
@@ -1778,6 +1809,15 @@ VARIANT_CASES = [
     ("diverging", 40, 56, 128, 32, 32, "bfloat16", -200.0),
     ("diverging", 40, 56, 128, 32, 32, "float32", -200.0),
 ]
+# R4's and R3's bf16 cases off the wgmma design's widths, each on the first
+# design: dim_head 64, dim 144 at dim_head 32 (the three-buffer plan does
+# not fit; R1's wgmma design still takes it) and 3 heads a group;
+# (label, Bw, n, dim, heads, dim_head, heads a group or None: the
+# wrapper's)
+GROUPED_FIRST_CASES = [
+    ("dim_head 64", 37, 56, 64, 2, 64, None),
+    ("dim 144", 37, 56, 144, 4, 32, None),
+    ("3 heads a group", 11, 56, 48, 3, 16, 3)]
 # R10's strip design and R9's wgmma design at n 64, 49 and 9 (three of the
 # tile's four 16-row strips wholly padding), at the repro's Bw and a ragged
 # one; the same fields
@@ -1834,8 +1874,10 @@ def stacked_design(n, dim, dh, dtype_name):
 def variants_vs_plain(dev):
     """Phase 10a: R4's, R10's and R11's kernels, R11 whole and R9's route
     against their plain versions, R10 and R9 also at n 64, 49 and 9, each
-    of R10's and R9's launches on the design ``stacked_design`` or
-    ``perhead_design`` names.  Returns {route: max|kernel - plain|} at Bw
+    of R4's, R10's and R9's launches on the design ``grouped_design``,
+    ``stacked_design`` or ``perhead_design`` names (R4's wgmma design
+    bit-identical to R1's, its first design in bf16 on
+    ``GROUPED_FIRST_CASES``).  Returns {route: max|kernel - plain|} at Bw
     2,880 and n 56 in bf16."""
     import torch
 
@@ -1860,11 +1902,28 @@ def variants_vs_plain(dev):
                 ref = plain()
                 before = dict(av.stacked_route_launches)
                 before_r9 = dict(av.perhead_route_launches)
+                before_r4 = dict(av.headmajor_route_launches)
                 ours = kernel()
                 again = kernel()
                 torch.cuda.synchronize()
                 err, scale = kernel_errors(ours, again, ref, f"{name} {route}")
                 design = ""
+                if route == "headmajor_attention":
+                    want = grouped_design(n, dim, dh, dtype_name,
+                                          min(av.WGMMA_GROUP, heads))
+                    launched_design(av, before_r4, want, 2,
+                                    f"{name} {dtype_name} {route}",
+                                    av.headmajor_route_launches)
+                    design = f"; {want} design"
+                    if want == "wgmma":
+                        # bit-identical to R1's kernel on the same body
+                        r1_out = av.perhead_attention(x, wqkv, bias, 8)
+                        if not torch.equal(ours, r1_out):
+                            raise AssertionError(f"{name} {route}: not "
+                                                 "bit-identical to R1's "
+                                                 "wgmma kernel")
+                        design += ", bit-identical to R1's kernel"
+                        del r1_out
                 if route == r9:
                     want = perhead_design(n, dim, dh, dtype_name)
                     launched_design(av, before_r9, want, 2,
@@ -1893,7 +1952,50 @@ def variants_vs_plain(dev):
                 del ref, ours, again
         del x, wqkv, bias, routes
         torch.cuda.empty_cache()
+    grouped_first_vs_plain(dev, "headmajor_attention")
     return report
+
+
+def grouped_first_vs_plain(dev, route):
+    """R4's (``route`` "headmajor_attention") or R3's
+    ("crosshead_norm_attention") kernel on ``GROUPED_FIRST_CASES``: each
+    launch on the first design, as ``grouped_design`` says, within the bf16
+    tolerance of the plain version, a second launch bit-identical."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import attention_variants as plain
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    kernel = getattr(av, route)
+    counter = (av.headmajor_route_launches if route == "headmajor_attention"
+               else av.crosshead_route_launches)
+    tol = TOLERANCE["bfloat16"]
+    for name, bw, n, dim, heads, dh, group in GROUPED_FIRST_CASES:
+        x, wqkv, bias = repro.inputs(bw, torch.bfloat16, dev, SEED, n=n,
+                                     dim=dim, heads=heads, dim_head=dh)
+        want = grouped_design(n, dim, dh, "bfloat16",
+                              group or min(av.WGMMA_GROUP, heads),
+                              route == "crosshead_norm_attention")
+        if want != "first":
+            raise AssertionError(f"{name}: {want}, not off the wgmma widths")
+        with torch.inference_mode():
+            ref = plain.perhead_qkv_attention(x, wqkv, bias, heads, dh)
+            before = dict(counter)
+            ours = kernel(x, wqkv, bias, group)
+            again = kernel(x, wqkv, bias, group)
+            torch.cuda.synchronize()
+        launched_design(av, before, want, 2, f"{name} bfloat16 {route}",
+                        counter)
+        err, scale = kernel_errors(ours, again, ref, f"{name} {route}")
+        print(f"{name:15s} bfloat16 Bw={bw:4d} n={n:2d} {route:26s}: "
+              f"max|d|={err:.3e} max|plain|={scale:.3e} "
+              f"rel={err / scale:.3e} (tol {tol:g}); second launch "
+              f"bit-identical; first design", flush=True)
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} bfloat16 {route}: kernel differs "
+                                 f"from plain by {err}")
+        del x, wqkv, bias, ref, ours, again
 
 
 # the out-projection kernel's bf16 case off the strip design's widths
@@ -1944,8 +2046,11 @@ def outproj_routes(x, wqkv, bias, wout, heads, dh, dtype_name, bw,
 
 def crosshead_outproj_vs_plain(dev):
     """Phase 11a: R3's kernel and the out-projection kernel (R12, R13, R2's
-    casts, R8's n_pad and windows a CTA) against their plain versions.
-    Returns {route: max|kernel - plain|} at Bw 2,880 in bf16."""
+    casts, R8's n_pad and windows a CTA) against their plain versions,
+    each of R3's launches on the design ``grouped_design`` names (its wgmma
+    design within ``against_r1``'s bounds of R1's wgmma kernel, its first
+    design in bf16 on ``GROUPED_FIRST_CASES``).  Returns {route:
+    max|kernel - plain|} at Bw 2,880 in bf16."""
     import torch
 
     from vit_grid_model_tpu_torch.ops import attention_variants as plain
@@ -1953,14 +2058,18 @@ def crosshead_outproj_vs_plain(dev):
     from vit_grid_model_tpu_torch.repros import baseline_perhead as r1
     from vit_grid_model_tpu_torch.repros import npad_and_kfold as r8
     from vit_grid_model_tpu_torch.repros import weightsliced_variants as ws
+    from vit_grid_model_tpu_torch.repros.grouped_sections import (
+        R3_DIFFER_SHARE, R3_GAP, against_r1)
     from vit_grid_model_tpu_torch.repros.perhead_weight_gemm import weight4
 
     report = {}
     repro_bw = VARIANT_CASES[0][1]   # the repro's Bw 2,880
 
-    def check(label, route, kernel, ref_call, tol, bw):
+    def check(label, route, kernel, ref_call, tol, bw, want=None,
+              r1_call=None):
         ref = ref_call()
         before = dict(av.outproj_route_launches)
+        before_r3 = dict(av.crosshead_route_launches)
         ours = kernel()
         again = kernel()
         torch.cuda.synchronize()
@@ -1969,6 +2078,20 @@ def crosshead_outproj_vs_plain(dev):
         took = [d for d, c in av.outproj_route_launches.items()
                 if c > before.get(d, 0)]
         design = f"; {took[0]} design" if took else ""
+        if want is not None:   # R3's, as its wrapper counted it
+            launched_design(av, before_r3, want, 2, f"{label} {route}",
+                            av.crosshead_route_launches)
+            design = f"; {want} design"
+        if want == "wgmma":
+            # only the norm's sums differ from R1's wgmma kernel
+            gap, share, steps = against_r1(ours, r1_call(), scale)
+            design += (f"; against R1's kernel {gap:.3e} of max|plain|, "
+                       f"{share:.3e} of the elements differ (the largest by "
+                       f"{steps:.1f} bf16 steps)")
+            if not (gap <= R3_GAP and share <= R3_DIFFER_SHARE):
+                raise AssertionError(f"{label} {route}: further from R1's "
+                                     "wgmma kernel than the norm's sums "
+                                     "allow")
         print(f"{label} {route:30s}: max|d|={err:.3e} max|plain|={scale:.3e} "
               f"rel={err / scale:.3e} (tol {tol:g}); second launch "
               f"bit-identical{design}", flush=True)
@@ -1990,13 +2113,17 @@ def crosshead_outproj_vs_plain(dev):
             check(label, "crosshead_norm_attention",
                   lambda: av.crosshead_norm_attention(x, wqkv, bias),
                   lambda: plain.perhead_qkv_attention(x, wqkv, bias, heads,
-                                                      dh), tol, bw)
+                                                      dh), tol, bw,
+                  grouped_design(n, dim, dh, dtype_name,
+                                 min(av.WGMMA_GROUP, heads), True),
+                  lambda: av.perhead_attention(x, wqkv, bias, 8))
             for route, (kernel, ref_call) in outproj_routes(
                     x, wqkv, bias, wout, heads, dh, dtype_name, bw,
                     offset != 0).items():
                 check(label, route, kernel, ref_call, tol, bw)
         del x, wqkv, bias, wout
         torch.cuda.empty_cache()
+    grouped_first_vs_plain(dev, "crosshead_norm_attention")
     # bf16 off the strip design's widths: the first design
     for name, bw, n, dim, heads, dh, dtype_name, offset in OUTPROJ_FIRST_CASES:
         x, wqkv, bias, wout = ws.inputs(bw, getattr(torch, dtype_name), dev,
@@ -2861,6 +2988,16 @@ def run(root: str) -> int:
                                  "widths")
         return {**counts, "strip design": by_route["strip"]}
 
+    def grouped_wgmma(name, counts, by_route):
+        """The repro's launches, and R4's or R3's wgmma-design launches;
+        raises when one took the first design at the repros' bf16
+        widths."""
+        if by_route["first"]:
+            raise AssertionError(f"{by_route['first']} {name} launches took "
+                                 "the first design at the repros' bf16 "
+                                 "widths")
+        return {**counts, f"{name} wgmma design": by_route["wgmma"]}
+
     for module, route, count in (
             (repro_r4, "headmajor_attention", lambda: av.headmajor_launches),
             (repro_r10, "stacked_softmax_attention",
@@ -2875,6 +3012,9 @@ def run(root: str) -> int:
         if module is repro_r10:
             counts = (lambda: wgmma_design(route, strip_design(
                 route, {route: count()}, av.stacked_route_launches)))
+        if module is repro_r4:
+            counts = (lambda: wgmma_design(route, grouped_wgmma(
+                route, {route: count()}, av.headmajor_route_launches)))
         variant_runs[route] = repro_path(module, [av], counts)
 
     phase("11a", "R3 and the out-projection kernel (R12, R13, R2, R8) vs "
@@ -2895,9 +3035,14 @@ def run(root: str) -> int:
                                  "design at the repros' bf16 widths")
         return {**counts, "strip design": av.outproj_route_launches["strip"]}
 
+    # R3's repro runs R4's and R1's kernels beside R3's: every launch of
+    # the three takes the wgmma design
     r3_launches, r3_results = repro_path(
-        repro_r3, [av],
-        lambda: {"crosshead_norm_attention": av.crosshead_launches})
+        repro_r3, [av], lambda: wgmma_design("R3", grouped_wgmma(
+            "headmajor_attention", grouped_wgmma(
+                "crosshead_norm_attention",
+                {"crosshead_norm_attention": av.crosshead_launches},
+                av.crosshead_route_launches), av.headmajor_route_launches)))
     ws_launches, ws_results = repro_path(repro_ws, [av], lambda: strip_only({
         name: outproj_count(tp, pw)
         for name, (_, tp, pw) in repro_ws.VARIANTS.items()}))
@@ -3121,6 +3266,8 @@ def run(root: str) -> int:
                "strip", "perhead_attention_w8": "wgmma",
                "perhead_attention_w16": "wgmma",
                "perhead_weight_attention": "wgmma",
+               "headmajor_attention": "wgmma",
+               "crosshead_norm_attention": "wgmma",
                "maxvit_layer_attention": "strip",
                "stacked_softmax_attention": "strip"}
     designs.update({k[0]: "strip" for k in kernels

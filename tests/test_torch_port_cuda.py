@@ -6,8 +6,12 @@ keep mask, the fused MBConv, the per-head attention of R1/R14
 kernels of R4 (head-major batched), R10 (stacked softmax), R11 (staged
 core, and R11 whole) and R3 (cross-head indicator norm), the
 out-projection kernel of R12, R13, R2 and R8, and the head-pack kernel of
-R5 and R6, and the int8 conv's card route.  R10's and R5/R6's strip
-designs are asserted by route (R10's at n 9, 56 and 64, ragged Bw and
+R5 and R6, and the int8 conv's card route.  R4's and R3's wgmma designs
+are asserted by route, R4's bit-identical to R1's wgmma kernel at 1 and 2
+heads a staged x, R3's within 2.5e-3 of max|plain| of it with at most
+``grouped_sections.R3_DIFFER_SHARE`` of the elements different (n 9-64, dh
+16 and 32, 3 and 32 heads, a ragged Bw, diverging scores).  R10's and R5/R6's
+strip designs are asserted by route (R10's at n 9, 56 and 64, ragged Bw and
 diverging scores; R5/R6's bit-identical to the out-projection kernel's
 strip design), with the kernels' route exports.  Skips without a CUDA
 device.
@@ -633,6 +637,134 @@ def test_crosshead_norm_attention_matches_plain(bw, n, dim, heads, dim_head,
     assert av.crosshead_launches == before + 2
     err, scale = chip_smoke.kernel_errors(ours, again, ref, "crosshead")
     assert err <= TOL[dtype] * scale, err
+
+
+# R4's and R3's wgmma design: (Bw, n, dim, heads, dim_head, head-0 bias
+# offset); Bw 37 leaves a ragged last tile, 3 heads a ragged last group of
+# G 2, n 64, 49 and 9 fill the 64-row tile wholly, ragged and mostly with
+# padding
+GROUPED_WGMMA_CASES = [
+    (37, 56, 128, 32, 32, 0.0),      # the repros' widths
+    (37, 64, 128, 32, 32, 0.0),
+    (37, 49, 128, 32, 32, 0.0),
+    (37, 9, 128, 32, 32, 0.0),
+    (37, 56, 128, 3, 32, 0.0),       # 3 heads at dh 32
+    (37, 9, 48, 3, 16, 0.0),         # dh 16, m64n48k16's qkv
+    (11, 64, 48, 3, 16, 0.0),
+    (40, 56, 128, 32, 32, -200.0)]   # head 0's scores ~200 below head 1's
+
+
+def _grouped_case(bw, n, dim, heads, dim_head, offset):
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        perhead_qkv_attention)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import baseline_perhead as repro
+
+    x, wqkv, bias = repro.inputs(bw, torch.bfloat16, torch.device("cuda"), 0,
+                                 n=n, dim=dim, heads=heads,
+                                 dim_head=dim_head)
+    bias[0] += offset
+    with torch.inference_mode():
+        ref = perhead_qkv_attention(x, wqkv, bias, heads, dim_head)
+        r1 = av.perhead_attention(x, wqkv, bias, 8)
+    return x, wqkv, bias, ref, r1
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset",
+                         GROUPED_WGMMA_CASES)
+def test_headmajor_wgmma_design_is_perhead_wgmma_design(
+        bw, n, dim, heads, dim_head, offset, group):
+    """R4's wgmma design at 1 and 2 heads a staged x is bit-identical to
+    the per-head kernel's wgmma design (R1's launch); a second launch too,
+    and both launches take the wgmma design."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+
+    x, wqkv, bias, ref, r1 = _grouped_case(bw, n, dim, heads, dim_head,
+                                           offset)
+    assert av.headmajor_route(n, dim, dim_head, torch.bfloat16,
+                              group) == "wgmma"
+    before = dict(av.headmajor_route_launches)
+    with torch.inference_mode():
+        ours = av.headmajor_attention(x, wqkv, bias, group)
+        again = av.headmajor_attention(x, wqkv, bias, group)
+    torch.cuda.synchronize()
+    chip_smoke.launched_design(av, before, "wgmma", 2, "headmajor",
+                               av.headmajor_route_launches)
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "headmajor")
+    assert err <= TOL[torch.bfloat16] * scale, err
+    assert torch.equal(ours, r1)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("bw,n,dim,heads,dim_head,offset",
+                         GROUPED_WGMMA_CASES)
+def test_crosshead_wgmma_design_matches_plain(bw, n, dim, heads, dim_head,
+                                              offset, group):
+    """R3's wgmma design (the indicator norm on the tensor cores) within
+    2e-2 of max|plain|, as R1's, and within ``against_r1``'s bounds of R1's
+    kernel's output, from which only the norm's sums differ: 2.5e-3 of
+    max|plain| and ``R3_DIFFER_SHARE`` of the elements different, which
+    squares rounded once to bf16 exceed; a second launch bit-identical,
+    both on the wgmma design."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.repros import grouped_sections as tool
+
+    x, wqkv, bias, ref, r1 = _grouped_case(bw, n, dim, heads, dim_head,
+                                           offset)
+    assert av.crosshead_route(n, dim, dim_head, torch.bfloat16,
+                              group) == "wgmma"
+    before = dict(av.crosshead_route_launches)
+    with torch.inference_mode():
+        ours = av.crosshead_norm_attention(x, wqkv, bias, group)
+        again = av.crosshead_norm_attention(x, wqkv, bias, group)
+    torch.cuda.synchronize()
+    chip_smoke.launched_design(av, before, "wgmma", 2, "crosshead",
+                               av.crosshead_route_launches)
+    err, scale = chip_smoke.kernel_errors(ours, again, ref, "crosshead")
+    assert err <= TOL[torch.bfloat16] * scale, err
+    gap, share, steps = tool.against_r1(ours, r1, scale)
+    print(f"R3 against R1's kernel: {gap:.3e} of max|plain|, {share:.3e} of "
+          f"the elements differ, the largest by {steps:.1f} bf16 steps")
+    assert gap <= tool.R3_GAP and share <= tool.R3_DIFFER_SHARE, (
+        gap, share, steps)
+
+
+def test_grouped_routes_are_named_by_the_kernels_exports():
+    """``headmajor_route`` and ``crosshead_route`` (the kernels' own
+    exports) agree with ``chip_smoke.grouped_design`` at and beyond the
+    widths they document; the wgmma design's occupancy exports report it at
+    one CTA an SM, no local memory, within 168 registers."""
+    _need_cuda()
+    import ctypes
+
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+    from vit_grid_model_tpu_torch.ops.cuda import library
+
+    for n, dim, dh in ((56, 128, 32), (64, 128, 32), (64, 144, 32),
+                       (9, 176, 32), (64, 224, 16), (64, 240, 16),
+                       (9, 48, 16), (56, 128, 64), (56, 40, 16),
+                       (65, 128, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for group in (1, 2, 3):
+                assert av.headmajor_route(n, dim, dh, dtype, group) == \
+                    chip_smoke.grouped_design(n, dim, dh, name, group), (
+                        n, dim, dh, group)
+                assert av.crosshead_route(n, dim, dh, dtype, group) == \
+                    chip_smoke.grouped_design(n, dim, dh, name, group,
+                                              True), (n, dim, dh, group)
+    lib = library.load()
+    out = (ctypes.c_int * 4)()
+    for fn, smem in ((lib.vgm_headmajor_attention_occupancy, 220544),
+                     (lib.vgm_crosshead_norm_attention_occupancy, 221568)):
+        for group in (1, 2):
+            assert fn(56, 128, 32, group, 1, out) == 1
+            assert out[0] <= 168 and out[1] == 0
+            assert out[2] == smem and out[3] == 1
+        assert fn(56, 128, 32, 2, 0, out) == 0
 
 
 # the out-projection kernel's structures: name -> (R9's weight, two_pass,

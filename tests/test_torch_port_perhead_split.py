@@ -60,6 +60,7 @@ BW = 16                    # two 8-window programs, one 16-window program
 NS = [9, 49, 56, 64]
 SMEM_LIMIT = 232448        # bytes of shared memory a CTA may have
 SOURCE = library.CSRC / "perhead_attention.cu"
+BODY = library.CSRC / "perhead_wgmma_body.cuh"
 
 
 def inputs(n: int, dtype=torch.bfloat16, seed: int = 4):
@@ -265,8 +266,9 @@ def test_wrappers_on_cpu_count_no_route():
 
 
 def _constant(name: str) -> int:
+    """A constant of the per-head source or of the wgmma body's header."""
     m = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
-                  SOURCE.read_text())
+                  SOURCE.read_text() + BODY.read_text())
     assert m, name
     return int(m.group(1))
 
@@ -316,8 +318,8 @@ def test_perhead_sections_patches_every_place():
     source (its headers inlined): a stamp after each of the first design's
     six sections and the wgmma design's seven, the counts opened and
     flushed in both kernels, the wgmma design at the other warpgroup
-    counts and without its next-window copies; the parent-check sources of
-    R4 and R3 inline their headers."""
+    counts and without its next-window copies (the body's, shared with R4
+    and R3, whose earlier form the tool also takes from a parent)."""
     from vit_grid_model_tpu_torch.repros import perhead_sections as tool
 
     v = tool.variants(library.CSRC)
@@ -340,10 +342,8 @@ def test_perhead_sections_patches_every_place():
     assert stamp.count("long long sec_acc[16]") == 2
     for k in range(len(tool.WGMMA_SECTIONS)):
         assert f"STAMP({tool.WGMMA_BASE + k});" in stamp
-    for name in tool.GROUPED:
-        text = tool.inline_includes((library.CSRC / name).read_text(),
-                                    library.CSRC)
-        assert '#include "' not in text and tool.GROUPED[name] in text
+    assert tool.NEXT_COPY == tool.NEXT_COPIES[0]
+    assert all(c not in v["plain"] for c in tool.NEXT_COPIES[1:])
 
 
 def test_ptxas_report_is_read():

@@ -18,8 +18,26 @@
 // the bf16 peak (repros/baseline_perhead.py::bound_ms); the norm's product
 // adds no work the function needs.
 //
-// What this design does about it.  One window's whole q|k|v is 688 KB in
-// f32, so the norm runs over a group of G heads, on R4's structure
+// The wgmma design (bf16 at dh 16 or 32, dim a multiple of 16 while the
+// plan fits, n <= 64, G 1 or 2; vgm_crosshead_norm_attention_route says 1)
+// is R4's (headmajor_attention.cu) with the norm step swapped: the per-head
+// kernel's wgmma body (perhead_wgmma_body.cuh) with G heads a staged x and
+// kIndicatorNorm.  The sums of squares of q and k are one register-A
+// wgmma product (m64n8k16 steps) of the squared q | k accumulator, split
+// into bf16 high and low parts, with the exact 0/1 indicator (column 0
+// q's, column 1 k's; v left out), built once a CTA in shared memory as
+// core matrices; each thread reads its rows' two sums from the lane of its
+// quad that holds them.  The indicator spans one head's q | k, the
+// accumulators live together: two heads' q | k | v (96 f32 a thread) held
+// through the first head's scores, softmax and P.v would pass the 168
+// registers three warpgroups allow.  Three consumer warpgroups and three
+// head buffers, 221,440 B at n 56, one CTA an SM; within bf16 rounding of
+// R4's output (the sums are within ~2^-16 of R4's).  The times of the two
+// kernels answer the TPU repro's question on this card.
+//
+// The first design (f32 and every other width).  One window's whole q|k|v
+// is 688 KB in f32, so the norm runs over a group of G heads, on R4's
+// structure
 // (headmajor_attention.cu), with only the norm step swapped; the two
 // kernels' times answer the TPU repro's question.  A CTA of 256 threads
 // owns `windows_per_cta` windows and loops head groups outside them; each
@@ -58,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "perhead_wgmma_body.cuh"
 
 namespace {
 
@@ -294,4 +313,47 @@ extern "C" int vgm_crosshead_norm_attention(const void* x, const void* wqkv,
                                  group, windows_per_cta, st);
   return launch<float>(x, wqkv, bias, out, bw, n, dim, heads, dh, group,
                        windows_per_cta, st);
+}
+
+// The design a launch at these widths and G takes: 1 the wgmma design
+// (vgm_crosshead_norm_attention_wgmma), 0 the first
+// (vgm_crosshead_norm_attention).
+extern "C" int vgm_crosshead_norm_attention_route(int n, int dim, int dh,
+                                                  int group, int is_bf16) {
+  return grouped_wgmma_takes<true>(n, dim, dh, group, is_bf16) ? 1 : 0;
+}
+
+// x: (bw, n, dim) bf16; w_tiles: (heads, 3dh / 8, dim / 8, 8, 8) bf16, each
+// head's Wqkv_h^T in 8 x 8 core matrices; bias_rows: (heads, n, 72) f32;
+// out: (bw, n, heads*dh) bf16.  All contiguous.  Takes the widths and G of
+// vgm_crosshead_norm_attention_route's 1 (the last group may hold fewer
+// heads).  Launches ceil(bw / windows_per_cta) CTAs on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int vgm_crosshead_norm_attention_wgmma(
+    const void* x, const void* w_tiles, const void* bias_rows, void* out,
+    int bw, int n, int dim, int heads, int dh, int group,
+    int windows_per_cta, void* stream) {
+  return launch_grouped_wgmma<true>(x, w_tiles, bias_rows, out, bw, n, dim,
+                                    heads, dh, group, windows_per_cta,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// The routed design's registers, local bytes a thread, shared memory a CTA
+// and CTAs an SM into out[0..3]; returns the route (-1 on failure).
+extern "C" int vgm_crosshead_norm_attention_occupancy(int n, int dim, int dh,
+                                                      int group, int is_bf16,
+                                                      int* out) {
+  int err;
+  const int route =
+      vgm_crosshead_norm_attention_route(n, dim, dh, group, is_bf16);
+  if (route == 1)
+    err = grouped_wgmma_occupancy<true>(n, dim, dh, group, out);
+  else if (is_bf16)
+    err = occupancy_of(crosshead_norm_kernel<__nv_bfloat16>,
+                       make_crosshead_plan<__nv_bfloat16>(dim, dh, group).bytes,
+                       out);
+  else
+    err = occupancy_of(crosshead_norm_kernel<float>,
+                       make_crosshead_plan<float>(dim, dh, group).bytes, out);
+  return err < 0 ? -1 : route;
 }

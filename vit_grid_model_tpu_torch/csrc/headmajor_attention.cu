@@ -16,11 +16,27 @@
 // window at the repro's shape (n = 56, dim 128, 32 heads x 32), 0.166 ms at
 // Bw = 2,880 on the bf16 peak (repros/baseline_perhead.py::bound_ms).
 //
-// What this design does about it.  "All heads at once" cannot mean one
-// window's whole q|k|v here: that is 688 KB in f32.  It becomes a group of
-// G heads at once; the wrapper picks the largest G (up to 2) of which two
-// CTAs share an SM, since the kernel is latency-bound.  A
-// CTA of 256 threads owns `windows_per_cta` windows and loops head groups
+// The wgmma design (bf16 at dh 16 or 32, dim a multiple of 16 while the
+// plan fits, n <= 64, G 1 or 2; vgm_headmajor_attention_route says 1).
+// "All heads at once" becomes what a CTA can hold and what costs the
+// per-head wgmma kernel most: x, which that kernel streams again for every
+// head (459 KB a window of its ~620 KB from L2 at the repro's widths), is
+// staged once for a group of G heads, and the group's heads run one after
+// another on it, each on the per-head kernel's wgmma body
+// (perhead_wgmma_body.cuh: every product on warpgroup MMA, S and P.v
+// hi/lo split, norms and softmax by quad shuffles).  Steps go (group,
+// window, head in the group); each head's weight tiles and bias rows arrive
+// by bulk copies into one of kGroupBuffers buffers and serve every window
+// of the CTA.  At the repro's widths, G = 2 (the wrapper's default):
+// three consumer warpgroups and three head buffers (the third takes the
+// next group's first head ahead), 220,416 B at n 56, one CTA an SM.  The
+// output is bit-identical to the per-head kernel's wgmma design at any G.
+//
+// The first design (f32 and every other width).  "All heads at once"
+// cannot mean one window's whole q|k|v here: that is 688 KB in f32.  It
+// becomes a group of G heads at once; the wrapper picks the largest G (up
+// to 2) of which two CTAs share an SM, since the kernel is latency-bound.
+// A CTA of 256 threads owns `windows_per_cta` windows and loops head groups
 // outside them, so each group's G weight slices (dim x 3dh each) are staged
 // once per CTA; x is streamed per (group, window) step into one of two
 // buffers with cp.async while the other is in use.  Each step:
@@ -47,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "perhead_wgmma_body.cuh"
 
 namespace {
 
@@ -203,4 +220,45 @@ extern "C" int vgm_headmajor_attention(const void* x, const void* wqkv,
                                  group, windows_per_cta, st);
   return launch<float>(x, wqkv, bias, out, bw, n, dim, heads, dh, group,
                        windows_per_cta, st);
+}
+
+// The design a launch at these widths and G takes: 1 the wgmma design
+// (vgm_headmajor_attention_wgmma), 0 the first (vgm_headmajor_attention).
+extern "C" int vgm_headmajor_attention_route(int n, int dim, int dh,
+                                             int group, int is_bf16) {
+  return grouped_wgmma_takes<false>(n, dim, dh, group, is_bf16) ? 1 : 0;
+}
+
+// x: (bw, n, dim) bf16; w_tiles: (heads, 3dh / 8, dim / 8, 8, 8) bf16, each
+// head's Wqkv_h^T in 8 x 8 core matrices; bias_rows: (heads, n, 72) f32;
+// out: (bw, n, heads*dh) bf16.  All contiguous.  Takes the widths and G of
+// vgm_headmajor_attention_route's 1 (the last group may hold fewer heads).
+// Launches ceil(bw / windows_per_cta) CTAs on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int vgm_headmajor_attention_wgmma(
+    const void* x, const void* w_tiles, const void* bias_rows, void* out,
+    int bw, int n, int dim, int heads, int dh, int group,
+    int windows_per_cta, void* stream) {
+  return launch_grouped_wgmma<false>(x, w_tiles, bias_rows, out, bw, n, dim,
+                                     heads, dh, group, windows_per_cta,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// The routed design's registers, local bytes a thread, shared memory a CTA
+// and CTAs an SM into out[0..3]; returns the route (-1 on failure).
+extern "C" int vgm_headmajor_attention_occupancy(int n, int dim, int dh,
+                                                 int group, int is_bf16,
+                                                 int* out) {
+  int err;
+  const int route = vgm_headmajor_attention_route(n, dim, dh, group, is_bf16);
+  if (route == 1)
+    err = grouped_wgmma_occupancy<false>(n, dim, dh, group, out);
+  else if (is_bf16)
+    err = occupancy_of(headmajor_attention_kernel<__nv_bfloat16>,
+                       make_headmajor_plan<__nv_bfloat16>(dim, dh, group).bytes,
+                       out);
+  else
+    err = occupancy_of(headmajor_attention_kernel<float>,
+                       make_headmajor_plan<float>(dim, dh, group).bytes, out);
+  return err < 0 ? -1 : route;
 }

@@ -18,8 +18,9 @@
 // 0.111 / 0.35 ms for the bytes.
 //
 // The wgmma design (bf16 at dh 16 or 32, dim a multiple of 16 up to 176 at
-// dh 32 and 288 at dh 16, n <= 64; vgm_perhead_attention_route says 1).
-// Every product runs on warpgroup MMA (wgmma_common.cuh): a window's rows,
+// dh 32 and 288 at dh 16, n <= 64; vgm_perhead_attention_route says 1; its
+// body, shared with R4's and R3's kernels, is perhead_wgmma_body.cuh at one
+// head a staged x with the shuffle norm).  Every product runs on warpgroup MMA (wgmma_common.cuh): a window's rows,
 // padded to 64 (rows n..63 of x zero, so a padded q or k normalises to 0),
 // are one warpgroup's M.  q | k | v is m64n(3dh)k16 with x and Wqkv_h^T
 // from shared memory, dim / 16 steps; its epilogue takes the l2 norms (a
@@ -75,7 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
-#include "wgmma_common.cuh"
+#include "perhead_wgmma_body.cuh"
 
 namespace {
 
@@ -197,363 +198,28 @@ int launch(const void* x, const void* wqkv, const void* bias, void* out,
 
 // ---------------------------------------------------------------------------
 // The wgmma design (bf16, dh 16 or 32, dim a multiple of 16 while the plan
-// fits, n <= 64).  Warpgroup wgi of a CTA runs the CTA's windows wgi,
-// wgi + kWarpgroups, ... of each head in turn; the heads are the outer
-// loop, so head h's weight tiles and bias rows serve every window of the
-// CTA.  Shared memory: two buffers of (Wqkv_h^T tiles, bias_h rows), filled
-// by bulk copies a head ahead and completed on an mbarrier each; per
-// warpgroup one x buffer (64 rows in core matrices, rows n..63 zero) and
-// the kn hi/lo and v^T hi/lo planes that S and P.v read.
+// fits, n <= 64): the body of perhead_wgmma_body.cuh at one head a staged
+// x (G = 1) with the shuffle norm.  Warpgroup wgi of a CTA runs the CTA's
+// windows wgi, wgi + kWarpgroups, ... of each head in turn; the heads are
+// the outer loop, so head h's weight tiles and bias rows serve every window
+// of the CTA.  Shared memory: two buffers of (Wqkv_h^T tiles, bias_h rows),
+// filled by bulk copies a head ahead and completed on an mbarrier each;
+// per warpgroup one x buffer (64 rows in core matrices, rows n..63 zero)
+// and the kn hi/lo and v^T hi/lo planes that S and P.v read.
 
 constexpr int kWarpgroups = 3;  // consumer warpgroups a CTA
-constexpr int kWgmmaThreads = kWarpgroups * wg::kThreads;
-constexpr int kBiasLd = 72;     // floats a bias row (n <= 64, padded)
-constexpr size_t kMaxSmem = 232448;
-
-struct WgmmaPlan {
-  int w_bytes, bias_bytes, x_bytes, kv_bytes;
-  size_t w[2], bias[2], wgs, wg_stride, bar, bytes;
-};
-
-template <int kDh>
-__host__ __device__ WgmmaPlan make_wgmma_plan(int n, int dim) {
-  WgmmaPlan p{};
-  p.w_bytes = 3 * kDh * dim * 2;
-  p.bias_bytes = n * kBiasLd * 4;
-  p.x_bytes = kRows * dim * 2;
-  p.kv_bytes = kRows * kDh * 2;
-  size_t off = 0;
-  for (int b = 0; b < 2; ++b) {
-    p.w[b] = off;
-    off = align128(off + p.w_bytes);
-  }
-  for (int b = 0; b < 2; ++b) {
-    p.bias[b] = off;
-    off = align128(off + p.bias_bytes);
-  }
-  p.wgs = off;
-  p.wg_stride = align128(p.x_bytes + 4 * p.kv_bytes);
-  off += kWarpgroups * p.wg_stride;
-  p.bar = off;  // two mbarriers, then two counters
-  p.bytes = align128(off + 2 * sizeof(uint64_t) + 2 * sizeof(unsigned));
-  return p;
-}
-
-// x: (bw, n, dim) bf16; w_tiles: per head Wqkv_h^T (3dh x dim) in 8 x 8
-// core matrices (wg::core_offset); bias_rows: (heads, n, kBiasLd) f32, the
-// first n of each row read; out: (bw, n, heads dh) bf16.
-template <int kDh>
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
-    perhead_attention_wgmma(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ w_tiles,
-                            const float* __restrict__ bias_rows,
-                            __nv_bfloat16* __restrict__ out, int bw, int n,
-                            int dim, int heads, int windows_per_cta) {
-  constexpr int kQkv = 3 * kDh;  // the qkv product's N
-  constexpr int kC = kDh / 8;    // 8-column chunks of q, k or v
-  constexpr int kKs = kDh / 16;  // k16 steps of S
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WgmmaPlan plan = make_wgmma_plan<kDh>(n, dim);
-  // the plan's fields the loop reads, as scalars (registers, not a struct)
-  const uint32_t w_bytes = plan.w_bytes;
-  const uint32_t bias_bytes = plan.bias_bytes;
-  const size_t w_at = plan.w[0], w_step = plan.w[1] - plan.w[0];
-  const size_t bias_at = plan.bias[0], bias_step = plan.bias[1] - plan.bias[0];
-  const int tid = threadIdx.x;
-  const int wgi = tid / wg::kThreads;
-  const int lt = tid % wg::kThreads;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = 16 * (lt >> 5) + g;  // this thread's rows r0 and r0 + 8
-  unsigned char* own = smem + plan.wgs + wgi * plan.wg_stride;
-  unsigned char* kh = own + plan.x_bytes;
-  unsigned char* kl = kh + plan.kv_bytes;
-  unsigned char* vh = kl + plan.kv_bytes;
-  unsigned char* vl = vh + plan.kv_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.bar);
-  unsigned* done = reinterpret_cast<unsigned*>(full + 2);
-
-  const int w0 = blockIdx.x * windows_per_cta;
-  const int nw = min(windows_per_cta, bw - w0);  // the last tile is ragged
-  const int count = (nw - wgi + kWarpgroups - 1) / kWarpgroups;
-  const int inner = heads * kDh;
-  const int chunks = dim / 8;
-
-  // rows n..63 of the x buffer stay zero: the copies write rows < n only
-  for (int e = lt; e < (kRows - n) * chunks; e += wg::kThreads)
-    *reinterpret_cast<uint4*>(
-        own + wg::core_offset(n + e / chunks, 8 * (e % chunks), dim)) =
-        make_uint4(0, 0, 0, 0);
-  if (tid == 0) {
-    wg::mbar_init(&full[0], 1);
-    wg::mbar_init(&full[1], 1);
-    wg::mbar_init_fence();
-    done[0] = done[1] = 0;
-  }
-  __syncthreads();
-
-  // head h's weight tiles and bias rows into buffer h & 1 (one thread)
-  auto stage = [=](int h) {
-    uint64_t* bar = full + (h & 1);
-    wg::mbar_expect_bytes(bar, w_bytes + bias_bytes);
-    wg::bulk_copy(smem + w_at + (h & 1) * w_step,
-                  w_tiles + static_cast<size_t>(h) * kQkv * dim, w_bytes,
-                  bar);
-    wg::bulk_copy(smem + bias_at + (h & 1) * bias_step,
-                  bias_rows + static_cast<size_t>(h) * n * kBiasLd,
-                  bias_bytes, bar);
-  };
-  if (tid == 0) {
-    stage(0);
-    if (heads > 1) stage(1);
-  }
-
-  // x of window w; eight threads fill one core matrix's 128 bytes, a warp
-  // four neighbours along a row
-  auto copy_x = [=](int w) {
-    const __nv_bfloat16* src = x + static_cast<size_t>(w) * n * dim;
-    for (int r = lt & 7; r < n; r += 8)
-      for (int c = lt >> 3; c < chunks; c += wg::kThreads / 8)
-        cp_async16(own + wg::core_offset(r, 8 * c, dim),
-                   src + static_cast<size_t>(r) * dim + 8 * c);
-    cp_async_commit();
-  };
-
-  const int steps = heads * count;
-  if (count > 0) copy_x(w0 + wgi);
-  int s = 0;
-  for (int h = 0; h < heads; ++h) {
-    const unsigned char* ws = smem + w_at + (h & 1) * w_step;
-    const float* bh =
-        reinterpret_cast<const float*>(smem + bias_at + (h & 1) * bias_step);
-    wg::mbar_wait(&full[h & 1], (h >> 1) & 1);
-    for (int j = 0; j < count; ++j, ++s) {
-      const int w = w0 + wgi + kWarpgroups * j;
-      cp_async_wait<0>();
-      wg::fence_proxy_async();
-      wg::barrier(1 + wgi);  // x is in; the last step's products are done
-      // section: copy wait
-
-      // q | k | v = x_w . Wqkv_h: dim / 16 steps of m64n(3dh)k16
-      float acc[kQkv / 2];
-      wg::fence();
-      for (int kk = 0; kk < dim / 16; ++kk)
-        wg::Mma<kQkv>::ss(acc, wg::desc(own + 256 * kk, dim),
-                          wg::desc(ws + 256 * kk, dim), kk);
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_regs(acc);
-      // section: qkv
-
-      // the l2 norms of q and k (a row's columns lie in one quad)
-      float sq[2] = {0.f, 0.f}, sk[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sq[e >> 1] += acc[4 * c + e] * acc[4 * c + e];
-          sk[e >> 1] += acc[4 * (kC + c) + e] * acc[4 * (kC + c) + e];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 1);
-        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 2);
-        sk[i] += __shfl_xor_sync(0xffffffffu, sk[i], 1);
-        sk[i] += __shfl_xor_sync(0xffffffffu, sk[i], 2);
-        sq[i] = rsqrtf(fmaxf(sq[i], 1e-24f));
-        sk[i] = rsqrtf(fmaxf(sk[i], 1e-24f));
-      }
-      // qn split as the A fragments of S's k16 steps
-      uint32_t qh[kKs][4], ql[kKs][4];
-#pragma unroll
-      for (int j2 = 0; j2 < kKs; ++j2)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 8 * j2 + 2 * r;
-          split_bf16(acc[i] * sq[r & 1], acc[i + 1] * sq[r & 1], qh[j2][r],
-                     ql[j2][r]);
-        }
-      // kn split into its planes (rows: keys), v^T into its (rows: d).  A
-      // v^T row holds neighbouring keys side by side: lanes g and g ^ 1
-      // swap one value, so the even lane stores column d's pair of keys
-      // (r, r + 1) and the odd lane column d + 1's (r - 1, r)
-      const bool odd = g & 1;
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + 8 * half;
-          const int i = 4 * (kC + c) + 2 * half;
-          uint32_t hi, lo;
-          split_bf16(acc[i] * sk[half], acc[i + 1] * sk[half], hi, lo);
-          const int off = wg::core_offset(r, 8 * c + 2 * t, kDh);
-          *reinterpret_cast<uint32_t*>(kh + off) = hi;
-          *reinterpret_cast<uint32_t*>(kl + off) = lo;
-          const float* v = acc + 4 * (2 * kC + c) + 2 * half;
-          const float other =
-              __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 4);
-          split_bf16(odd ? other : v[0], odd ? v[1] : other, hi, lo);
-          const int voff =
-              wg::core_offset(8 * c + 2 * t + odd, r - odd, kRows);
-          *reinterpret_cast<uint32_t*>(vh + voff) = hi;
-          *reinterpret_cast<uint32_t*>(vl + voff) = lo;
-        }
-      wg::fence_proxy_async();
-      wg::barrier(1 + wgi);  // the planes are in, the x buffer is free
-      if (s + 1 < steps)
-        copy_x(j + 1 < count ? w + kWarpgroups : w0 + wgi);
-      // section: epilogue
-
-      // S = qn kn^T: hi.hi + hi.lo + lo.hi, m64n64k16, the small ones first
-      float sc[kRows / 2];
-      wg::fence();
-#pragma unroll
-      for (int j2 = 0; j2 < kKs; ++j2) {
-        const uint64_t dhi = wg::desc(kh + 256 * j2, kDh);
-        const uint64_t dlo = wg::desc(kl + 256 * j2, kDh);
-        wg::Mma<kRows>::rs(sc, ql[j2], dhi, j2);
-        wg::Mma<kRows>::rs(sc, qh[j2], dlo, 1);
-        wg::Mma<kRows>::rs(sc, qh[j2], dhi, 1);
-      }
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_regs(sc);
-#pragma unroll
-      for (int j2 = 0; j2 < kKs; ++j2) {
-        wg::fence_regs(qh[j2]);
-        wg::fence_regs(ql[j2]);
-      }
-      // section: scores
-
-      // + bias_h (rows < n), keys >= n at -inf, a row softmax with the
-      // head's own max (quad shuffles)
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int c = 0; c < kRows / 8; ++c)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + 8 * half;
-          const int col = 8 * c + 2 * t;
-          float2 b = make_float2(0.f, 0.f);
-          if (r < n)
-            b = *reinterpret_cast<const float2*>(bh + r * kBiasLd + col);
-          float& s0 = sc[4 * c + 2 * half];
-          float& s1 = sc[4 * c + 2 * half + 1];
-          s0 = col < n ? s0 + b.x : -INFINITY;
-          s1 = col + 1 < n ? s1 + b.y : -INFINITY;
-          mx[half] = fmaxf(mx[half], fmaxf(s0, s1));
-        }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
-        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
-      }
-#pragma unroll
-      for (int i = 0; i < kRows / 2; ++i) {
-        sc[i] = __expf(sc[i] - mx[(i >> 1) & 1]);
-        sum[(i >> 1) & 1] += sc[i];
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
-        sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
-        sum[half] = 1.f / sum[half];
-      }
-      // P split as the A fragments of P.v's k16 steps, from S's
-      // accumulator in place
-      uint32_t ph[kRows / 16][4], pl[kRows / 16][4];
-#pragma unroll
-      for (int j2 = 0; j2 < kRows / 16; ++j2)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 8 * j2 + 2 * r;
-          split_bf16(sc[i] * sum[r & 1], sc[i + 1] * sum[r & 1], ph[j2][r],
-                     pl[j2][r]);
-        }
-      // section: softmax
-
-      // O = P v: hi.hi + hi.lo + lo.hi, m64n(dh)k16 over the 64 keys
-      float o[kDh / 2];
-      wg::fence();
-#pragma unroll
-      for (int j2 = 0; j2 < kRows / 16; ++j2) {
-        const uint64_t dhi = wg::desc(vh + 256 * j2, kRows);
-        const uint64_t dlo = wg::desc(vl + 256 * j2, kRows);
-        wg::Mma<kDh>::rs(o, pl[j2], dhi, j2);
-        wg::Mma<kDh>::rs(o, ph[j2], dlo, 1);
-        wg::Mma<kDh>::rs(o, ph[j2], dhi, 1);
-      }
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_regs(o);
-#pragma unroll
-      for (int j2 = 0; j2 < kRows / 16; ++j2) {
-        wg::fence_regs(ph[j2]);
-        wg::fence_regs(pl[j2]);
-      }
-      // section: P.v
-
-      // out[w, r, h dh + d] for rows r < n
-      __nv_bfloat16* ow = out + static_cast<size_t>(w) * n * inner + h * kDh;
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + 8 * half;
-          if (r < n)
-            *reinterpret_cast<uint32_t*>(ow + static_cast<size_t>(r) * inner +
-                                         8 * c + 2 * t) =
-                pack_bf16(o[4 * c + 2 * half], o[4 * c + 2 * half + 1]);
-        }
-      // section: store
-    }
-    // the last warpgroup done with head h's buffer refills it with head
-    // h + 2's; none waits for the others
-    wg::barrier(1 + wgi);
-    if (lt == 0) {
-      __threadfence_block();
-      if (atomicAdd(&done[h & 1], 1u) == kWarpgroups - 1) {
-        done[h & 1] = 0;
-        if (h + 2 < heads) {
-          wg::fence_proxy_async();
-          stage(h + 2);
-        }
-      }
-    }
-  }
-}
-
-template <int kDh>
-int launch_wgmma(const void* x, const void* w_tiles, const void* bias_rows,
-                 void* out, int bw, int n, int dim, int heads,
-                 int windows_per_cta, cudaStream_t stream) {
-  const size_t smem = make_wgmma_plan<kDh>(n, dim).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      perhead_attention_wgmma<kDh>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctas = (bw + windows_per_cta - 1) / windows_per_cta;
-  perhead_attention_wgmma<kDh><<<ctas, kWgmmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w_tiles),
-      static_cast<const float*>(bias_rows), static_cast<__nv_bfloat16*>(out),
-      bw, n, dim, heads, windows_per_cta);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int kHeadBuffers = 2;
 
 size_t wgmma_smem_bytes(int n, int dim, int dh) {
-  return dh == 16 ? make_wgmma_plan<16>(n, dim).bytes
-                  : make_wgmma_plan<32>(n, dim).bytes;
+  return wgmma_plan_bytes<kHeadBuffers, kWarpgroups, false>(n, dim, dh);
 }
 
 // The wgmma design takes bf16 at dh 16 or 32, dim a multiple of 16 whose
 // plan fits a CTA's shared memory (dim <= 176 at dh 32, <= 288 at dh 16),
 // n <= 64.
 bool wgmma_takes(int n, int dim, int dh, int is_bf16) {
-  return is_bf16 && n >= 1 && n <= kRows && dim >= 16 && dim % 16 == 0 &&
-         (dh == 16 || dh == 32) && wgmma_smem_bytes(n, dim, dh) <= kMaxSmem;
+  return is_bf16 && wgmma_widths(n, dim, dh) &&
+         wgmma_smem_bytes(n, dim, dh) <= kMaxSmem;
 }
 
 }  // namespace
@@ -610,11 +276,8 @@ extern "C" int vgm_perhead_attention_wgmma(const void* x, const void* w_tiles,
   if (bw < 1 || heads < 1 || windows_per_cta < 1 ||
       !wgmma_takes(n, dim, dh, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dh == 16)
-    return launch_wgmma<16>(x, w_tiles, bias_rows, out, bw, n, dim, heads,
-                            windows_per_cta, st);
-  return launch_wgmma<32>(x, w_tiles, bias_rows, out, bw, n, dim, heads,
-                          windows_per_cta, st);
+  return launch_wgmma_body_dh<1, false, kHeadBuffers, kWarpgroups>(
+      x, w_tiles, bias_rows, out, bw, n, dim, heads, dh, windows_per_cta, st);
 }
 
 // The routed design's registers, local bytes a thread, shared memory a CTA
@@ -624,12 +287,8 @@ extern "C" int vgm_perhead_attention_occupancy(int n, int dim, int dh,
   int err;
   const int route = vgm_perhead_attention_route(n, dim, dh, is_bf16);
   if (route == 1)
-    err = dh == 16 ? wg::occupancy_of(perhead_attention_wgmma<16>,
-                                      wgmma_smem_bytes(n, dim, dh),
-                                      kWgmmaThreads, out)
-                   : wg::occupancy_of(perhead_attention_wgmma<32>,
-                                      wgmma_smem_bytes(n, dim, dh),
-                                      kWgmmaThreads, out);
+    err = wgmma_body_occupancy<1, false, kHeadBuffers, kWarpgroups>(n, dim,
+                                                                   dh, out);
   else if (is_bf16)
     err = occupancy_of(perhead_attention_kernel<__nv_bfloat16, true>,
                        make_perhead_plan<__nv_bfloat16>(dim, dh).bytes, out);

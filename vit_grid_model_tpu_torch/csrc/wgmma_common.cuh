@@ -2,9 +2,9 @@
 // f32 sums, the shared-memory matrix descriptor of the no-swizzle
 // core-matrix layout, the fences and waits wgmma needs, named barriers of
 // one warpgroup, mbarriers completed by 1-D bulk copies (TMA), and the
-// occupancy query of a kernel at any thread count.  The per-head attention
-// kernel (csrc/perhead_attention.cu) runs on them; K1's, K3's and R10's
-// strip bodies could adopt them later.
+// occupancy query of a kernel at any thread count.  The per-head kernel's
+// body (csrc/perhead_wgmma_body.cuh: R1, R14, R9, R4 and R3) runs on them;
+// K1's, K3's and R10's strip bodies could adopt them later.
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 //
@@ -177,6 +177,24 @@ int occupancy_of(Kernel kernel, size_t smem, int threads, int* out) {
 // registers.  Only the widths the kernels use are written out.
 template <int N>
 struct Mma;
+
+template <>
+struct Mma<8> {
+  __device__ __forceinline__ static void rs(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
 
 template <>
 struct Mma<16> {

@@ -7,7 +7,9 @@ CUDA kernels under ``csrc/`` and their launch counters.
 * ``perhead_weight_attention`` (the same kernel): R9, from its (3, heads,
   dim, dim_head) weight;
 * ``headmajor_attention`` (``headmajor_attention.cu``): R4, a group of
-  heads' q|k|v at once, then a warp per query row;
+  heads on one staged x; in bf16 at dim_head 16 or 32 on the per-head
+  kernel's wgmma body (``headmajor_route`` names the design a launch
+  takes), else a group's q|k|v at once, then a warp per query row;
 * ``stacked_softmax_attention`` (``stacked_softmax_attention.cu``): R10,
   one softmax over a group of heads' stacked scores; in bf16 at K1's strip
   widths on K1's strip body without its out-projection (``stacked_route``
@@ -20,8 +22,8 @@ CUDA kernels under ``csrc/`` and their launch counters.
   MaxViT layer's block and grid attention in one cluster launch, on K1's
   strip body in bf16;
 * ``crosshead_norm_attention`` (``crosshead_norm_attention.cu``): R3, R4's
-  structure with a group's q/k norms from one product with a 0/1
-  indicator;
+  structure with the q/k norms from one product with a 0/1 indicator; in
+  bf16 at dim_head 16 or 32 on the same wgmma body (``crosshead_route``);
 * ``outproj_attention`` (``outproj_attention.cu``): R12, R13, R2 and R8,
   R1's function plus the out-projection, with the pass, out-projection,
   cast, windows-a-CTA and n choices at run time; in bf16 at K1's strip
@@ -81,6 +83,11 @@ stacked_route_launches: Counter = Counter()
 perhead_route_launches: Counter = Counter()
 PERHEAD_ROUTES = ("first", "wgmma")
 BIAS_LD = 72                  # floats a bias row the wgmma design reads
+# R4's and R3's kernels by the design they took, as PERHEAD_ROUTES names
+# the kernels' routes
+headmajor_route_launches: Counter = Counter()
+crosshead_route_launches: Counter = Counter()
+WGMMA_GROUP = 2               # R4's and R3's heads a staged x by default
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
 
@@ -90,6 +97,8 @@ def reset_launches() -> None:
     global staged_core_launches, layer_launches, crosshead_launches
     perhead_launches.clear()
     perhead_route_launches.clear()
+    headmajor_route_launches.clear()
+    crosshead_route_launches.clear()
     outproj_launches.clear()
     outproj_route_launches.clear()
     headpack_launches.clear()
@@ -282,20 +291,91 @@ def _launch_grouped(name: str, entry: str, x: Tensor, wqkv: Tensor,
     return out
 
 
+def grouped_route(entry: str, n: int, dim: int, dh: int, group: int,
+                  dtype: torch.dtype) -> str:
+    """The design a launch of R4's (``entry`` "vgm_headmajor_attention") or
+    R3's ("vgm_crosshead_norm_attention") kernel at these widths and
+    ``group`` heads takes, as the kernel's own ``<entry>_route`` says:
+    "wgmma" (bf16, dim_head 16 or 32, n <= 64, group 1 or 2, dim a
+    multiple of 16 while three head buffers and three warpgroups fit a CTA:
+    up to 128 at dim_head 32 and 224 at 16 at every n, more at small n) or
+    "first".
+
+    The wrappers' ``heads_per_group`` (G) means what the design makes of
+    it: on the wgmma design the heads one staged x of a window serves (1
+    or 2, default ``WGMMA_GROUP``); on the first design the heads whose
+    q|k|v a step computes at once (up to the heads, R3 up to
+    ``MAX_GROUP``; default ``_pick_group``'s).  So G 3 and more always
+    takes the first design, and G 2 takes either with the widths; the
+    route counters (``headmajor_route_launches``,
+    ``crosshead_route_launches``) say which ran."""
+    return PERHEAD_ROUTES[getattr(library.load(), entry + "_route")(
+        n, dim, dh, group, int(dtype == torch.bfloat16))]
+
+
+def headmajor_route(n: int, dim: int, dh: int, dtype: torch.dtype,
+                    group: int = WGMMA_GROUP) -> str:
+    """``grouped_route`` of R4's kernel."""
+    return grouped_route("vgm_headmajor_attention", n, dim, dh, group, dtype)
+
+
+def crosshead_route(n: int, dim: int, dh: int, dtype: torch.dtype,
+                    group: int = WGMMA_GROUP) -> str:
+    """``grouped_route`` of R3's kernel."""
+    return grouped_route("vgm_crosshead_norm_attention", n, dim, dh, group,
+                         dtype)
+
+
+def _launch_grouped_route(name: str, entry: str, x: Tensor, wqkv: Tensor,
+                          bias: Tensor, heads_per_group: Optional[int],
+                          counter: Counter) -> Tensor:
+    """Launch R4's or R3's kernel (library entry ``entry``) on the design
+    ``grouped_route`` names: the wgmma design at ``heads_per_group`` heads a
+    staged x (default ``WGMMA_GROUP``, at most the heads), else the first
+    design at ``heads_per_group`` (default ``_pick_group``'s).  Counts the
+    design in ``counter``."""
+    _check_cuda(name, x, 3)
+    bw, n, dim = x.shape
+    heads = bias.shape[0]
+    dh = wqkv.shape[1] // (3 * heads)
+    group = heads_per_group or min(WGMMA_GROUP, heads)
+    route = grouped_route(entry, n, dim, dh, group, x.dtype)
+    if route == "wgmma":
+        w_heads = _per_head(wqkv, heads)
+        _check_rows(name, x, w_heads, bias)
+        if group > heads:
+            raise ValueError(f"{name}: {group} heads a group of {heads}")
+        tiles, rows = _wgmma_operands(w_heads, bias)
+        out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
+        library.check(getattr(library.load(), entry + "_wgmma")(
+            x.data_ptr(), tiles.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            bw, n, dim, heads, dh, group, WINDOWS_PER_CTA, library.stream(x)),
+            name)
+    else:
+        out = _launch_grouped(name, entry, x, wqkv, bias, heads_per_group, 2,
+                              2)
+    counter[route] += 1
+    return out
+
+
 def headmajor_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
                         heads_per_group: Optional[int] = None) -> Tensor:
-    """R4: R1's function (its arguments) with a group of heads' q|k|v
-    computed at once and stored head-major, then a warp per query row with
-    no block barrier between the group's heads.  Unless given, the group is
-    the largest (up to 2 heads) of which two CTAs share an SM, since the
-    kernel is latency-bound: 1 head in bf16 at the repro's widths, 2 in
-    f32, where no group lets two CTAs share an SM."""
+    """R4: R1's function (its arguments) with a group of heads run on one
+    staged x.  In bf16 at the widths ``headmajor_route`` names "wgmma" the
+    kernel runs the per-head kernel's wgmma body, ``heads_per_group`` (1 or
+    2; default ``WGMMA_GROUP``) heads a staged x, its output bit-identical
+    to ``perhead_attention``'s there.  Elsewhere, and at any
+    ``heads_per_group`` above 2, the first design: the group's q|k|v
+    computed at once and stored head-major, then a warp per query row; its
+    group unless given the largest (up to 2 heads) of which two CTAs share
+    an SM, 2 in f32.  ``grouped_route`` sets out what G means on each."""
     heads = bias.shape[0]
     if x.device.type == "cpu":
         return plain.perhead_qkv_attention(x, wqkv, bias, heads,
                                            wqkv.shape[1] // (3 * heads))
-    out = _launch_grouped("headmajor_attention", "vgm_headmajor_attention",
-                          x, wqkv, bias, heads_per_group, 2, 2)
+    out = _launch_grouped_route("headmajor_attention",
+                                "vgm_headmajor_attention", x, wqkv, bias,
+                                heads_per_group, headmajor_route_launches)
     global headmajor_launches
     headmajor_launches += 1
     return out
@@ -443,11 +523,15 @@ MAX_GROUP = 8   # heads a group of R3's indicator or of a two-pass stack
 
 def crosshead_norm_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
                              heads_per_group: Optional[int] = None) -> Tensor:
-    """R3: R1's function (its arguments) on R4's structure, with each
-    group's q and k norms from one product of their squares with a 0/1
-    indicator.  Unless given, the group is R4's pick (the largest, up to 2
-    heads, of which two CTAs share an SM): 1 head in bf16 at the repro's
-    widths, 2 in f32."""
+    """R3: R1's function (its arguments) on R4's structure, with the q and
+    k norms from one product of their squares with a 0/1 indicator.  In
+    bf16 at the widths ``crosshead_route`` names "wgmma" the kernel runs R4's
+    wgmma design with the indicator norm on the tensor cores (one head's
+    q|k a product), ``heads_per_group`` (1 or 2; default ``WGMMA_GROUP``)
+    heads a staged x.  Elsewhere, and at any ``heads_per_group`` above 2,
+    the first design, each group's norms one product; its group unless
+    given R4's first-design pick, 2 in f32.  ``grouped_route`` sets out
+    what G means on each."""
     heads = bias.shape[0]
     if x.device.type == "cpu":
         return plain.perhead_qkv_attention(x, wqkv, bias, heads,
@@ -455,9 +539,10 @@ def crosshead_norm_attention(x: Tensor, wqkv: Tensor, bias: Tensor,
     if heads_per_group is not None and heads_per_group > MAX_GROUP:
         raise ValueError(f"crosshead_norm_attention: {heads_per_group} heads "
                          f"a group (<= {MAX_GROUP})")
-    out = _launch_grouped("crosshead_norm_attention",
-                          "vgm_crosshead_norm_attention", x, wqkv, bias,
-                          heads_per_group, 2, 2)
+    out = _launch_grouped_route("crosshead_norm_attention",
+                                "vgm_crosshead_norm_attention", x, wqkv,
+                                bias, heads_per_group,
+                                crosshead_route_launches)
     global crosshead_launches
     crosshead_launches += 1
     return out

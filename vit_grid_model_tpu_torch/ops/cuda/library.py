@@ -134,6 +134,16 @@ def load() -> ctypes.CDLL:
         lib.vgm_perhead_attention_route.restype = ctypes.c_int
         lib.vgm_perhead_attention_occupancy.argtypes = [i32] * 4 + [ptr]
         lib.vgm_perhead_attention_occupancy.restype = ctypes.c_int
+        for prefix in ("vgm_headmajor_attention",
+                       "vgm_crosshead_norm_attention"):
+            wgmma = getattr(lib, prefix + "_wgmma")
+            wgmma.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+            route = getattr(lib, prefix + "_route")
+            route.argtypes = [i32] * 5
+            occupancy = getattr(lib, prefix + "_occupancy")
+            occupancy.argtypes = [i32] * 5 + [ptr]
+            for fn in (wgmma, route, occupancy):
+                fn.restype = ctypes.c_int
         for fn in (lib.vgm_headmajor_attention_smem_bytes,
                    lib.vgm_stacked_softmax_attention_smem_bytes,
                    lib.vgm_crosshead_norm_attention_smem_bytes):

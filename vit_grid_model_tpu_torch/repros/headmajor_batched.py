@@ -9,9 +9,10 @@ each with its max error relative to the plain version:
 
 * ``plain``: ``ops/attention_variants.py::perhead_qkv_attention``;
 * ``kernel``: ``ops/cuda/attention_variants.py::headmajor_attention`` at
-  its default group (1 head in bf16: two CTAs an SM), and ``kernel G=2``
-  at 2 heads a group (one CTA an SM);
-* ``R1 kernel wpc=8``: R1's per-head kernel, the repro's yardstick.
+  its default group (the wgmma design, 2 heads a staged x), and ``kernel
+  G=1`` at 1 head a staged x (bit-identical, as both are to R1's kernel);
+* ``R1 kernel wpc=8``: R1's per-head kernel (the same wgmma body, x staged
+  again for every head), the repro's yardstick.
 
 Needs one CUDA device:
 
@@ -29,8 +30,8 @@ ITERS = 10   # timed calls a version
 KERNELS = {
     "kernel": lambda x, wqkv, bias: (
         lambda: headmajor_attention(x, wqkv, bias)),
-    "kernel G=2": lambda x, wqkv, bias: (
-        lambda: headmajor_attention(x, wqkv, bias, 2)),
+    "kernel G=1": lambda x, wqkv, bias: (
+        lambda: headmajor_attention(x, wqkv, bias, 1)),
     "R1 kernel wpc=8": r1.r1_kernel(8),
 }
 

@@ -50,10 +50,10 @@ repros' geometry in bf16 (56 tokens, dim 128, 32 heads x 32) at each Bw
   up to the warpgroup's barrier), the scores, the softmax, P.v and the
   store.
 
-With ``--parent``, R4's and R3's kernels (``headmajor_attention.cu``,
-``crosshead_norm_attention.cu``), which share ``attention_common.cuh`` with
-the first design, are also built from each DIR and from ``csrc/`` alike and
-called in turns at the same inputs: their outputs must be bit-identical.
+The wgmma design's body (``csrc/perhead_wgmma_body.cuh``) also runs R4's
+and R3's kernels (``repros/grouped_sections.py``).  With ``--parent``, the
+package's wgmma design (R1's and R9's launch at 8 windows a CTA, R14's at
+16) must be bit-identical to each DIR's wgmma design, where DIR has one.
 
 Operands a design takes in its own layout (the wgmma design's weight tiles
 and bias rows) are made outside the timing, as the per-head weight slices
@@ -101,10 +101,15 @@ WGMMA_BASE = 8
 WARPGROUPS = "constexpr int kWarpgroups = {};"
 WARPGROUP_COUNTS = (2, 3, 4)
 _WARPGROUPS = re.compile(r"constexpr int kWarpgroups = (\d+);")
-# the wgmma design's copy of the next window's x, which ``nocopy`` drops
-NEXT_COPY = """      if (s + 1 < steps)
-        copy_x(j + 1 < count ? w + kWarpgroups : w0 + wgi);
+# the wgmma design's copy of the next window's x, which ``nocopy`` drops:
+# the body's since it serves a group of heads, and the first wgmma
+# design's
+NEXT_COPY = """        if (gh + 1 == gn && s + 1 < steps)
+          copy_x(j + 1 < count ? w + kWgs : w0 + wgi);
 """
+NEXT_COPIES = (NEXT_COPY, """      if (s + 1 < steps)
+        copy_x(j + 1 < count ? w + kWarpgroups : w0 + wgi);
+""")
 
 # the occupancy export of a source whose first design is all it has (the
 # package's own has the same interface and reports the route it takes)
@@ -190,9 +195,10 @@ def variants(directory: Path) -> Dict[str, str]:
             if k != int(m.group(1)):
                 out[f"wg{k}"] = out["plain"].replace(m.group(0),
                                                      WARPGROUPS.format(k))
-        if NEXT_COPY not in text:
+        copy = [c for c in NEXT_COPIES if c in text]
+        if not copy:
             raise ValueError(f"{SOURCE} has changed: no next-window copy")
-        out["nocopy"] = out["plain"].replace(NEXT_COPY, "")
+        out["nocopy"] = out["plain"].replace(copy[0], "")
     out["stamp"] = _PRE + _insert(f, places) + _POST
     return out
 
@@ -257,37 +263,6 @@ class Design:
         return np.array(list(buf), dtype=np.float64)
 
 
-# R4's and R3's kernels, checked unchanged beside a parent: file -> entry
-GROUPED = {"headmajor_attention.cu": "vgm_headmajor_attention",
-           "crosshead_norm_attention.cu": "vgm_crosshead_norm_attention"}
-
-
-def grouped_call(path: Path, entry: str, x, w_heads, bias) -> Callable:
-    """A call of R4's or R3's kernel (``entry``) in the library at
-    ``path`` with the wrappers' group (up to 2 heads of which two CTAs share
-    an SM) and 8 windows a CTA."""
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, entry)
-    fn.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
-    smem = getattr(lib, entry + "_smem_bytes")
-    smem.argtypes = [i32] * 4
-    smem.restype = ctypes.c_long
-    bw, n, dim = x.shape
-    heads, dh = bias.shape[0], w_heads.shape[-1] // 3
-    group = av._pick_group(smem, dim, dh, heads, 1, 2, 2)
-    out = torch.empty(bw, n, heads * dh, dtype=x.dtype, device=x.device)
-    args = [x.data_ptr(), w_heads.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), bw, n, dim, heads, dh, group, av.WINDOWS_PER_CTA,
-            1, torch.cuda.current_stream(x.device).cuda_stream]
-
-    def run():
-        library.check(fn(*args), entry)
-        return out
-    run.lib = lib
-    return run
-
-
 def occupancy_line(name: str, label: str, occ: List[int]) -> str:
     route, regs, local, smem, per_sm = occ
     return (f"{name} {label}: route {route} ({'wgmma' if route else 'first'}"
@@ -321,10 +296,6 @@ def main(argv=None) -> Dict[str, object]:
     srcs: Dict[str, str] = {}
     for tag, d in dirs.items():
         srcs.update({f"{tag}_{k}": v for k, v in variants(d).items()})
-        if args.parent:
-            for name in GROUPED:
-                srcs[f"{tag}_{name[:-3]}"] = inline_includes(
-                    (d / name).read_text(), d)
     logs: Dict[str, str] = {}
     libs = build(srcs, BUILD, ("-Xptxas", "-v"), logs)
     report: Dict[str, object] = {"card": card, "ptxas": {}}
@@ -335,11 +306,9 @@ def main(argv=None) -> Dict[str, object]:
             print(f"ptxas {name}: {kernel}: {regs} registers, {stores} B "
                   f"spill stores, {loads} B spill loads", flush=True)
             report["ptxas"][f"{name}: {kernel}"] = [regs, stores, loads]
-    grouped = {name: path for name, path in libs.items()
-               if any(name.endswith("_" + f[:-3]) for f in GROUPED)}
     designs = {name[:-len("_plain")] if name.endswith("_plain") else name:
                Design(path) for name, path in libs.items()
-               if not name.endswith("_stamp") and name not in grouped}
+               if not name.endswith("_stamp")}
     stamps = {t: Design(libs[f"{t}_stamp"]) for t in dirs}
     heads, dh, dim = r1.HEADS, r1.DIM_HEAD, r1.DIM
     for bw in args.bw or BWS:
@@ -370,20 +339,21 @@ def main(argv=None) -> Dict[str, object]:
                         f"{s}={100 * v:.1f}%" for s, v in share.items()),
                         flush=True)
                     case[f"{name} w{wpc} sections"] = share
-            for f, entry in GROUPED.items():
-                runs = {name: grouped_call(path, entry, x, w_heads, bias)
-                        for name, path in grouped.items()
-                        if name.endswith("_" + f[:-3])}
-                outs = {name: run().clone() for name, run in runs.items()}
+            # the wgmma design of each tree, bit-identical at 8 (R1, R9)
+            # and 16 (R14) windows a CTA
+            for wpc in WINDOWS_PER_CTA:
+                outs = {name: runs[f"{name} w{wpc}"]().clone()
+                        for name, d in designs.items()
+                        if name in dirs and d.route(n, dim, dh) == 1}
                 first = next(iter(outs.values()))
                 same = all(torch.equal(first, o) for o in outs.values())
-                print(f"{label}: {f[:-3]} builds {sorted(outs)} "
+                print(f"{label}: wgmma design w{wpc} of {sorted(outs)} "
                       f"{'bit-identical' if same else 'DIFFER'}", flush=True)
                 if not same:
-                    raise AssertionError(f"{f}: the builds differ")
-                case[f[:-3]] = {"ms": in_turns(label, runs),
-                                "bit-identical": same}
-                del runs, outs, first
+                    raise AssertionError(f"w{wpc}: the trees' wgmma designs "
+                                         "differ")
+                case[f"w{wpc} bit-identical"] = same
+                del outs, first
             report[label] = case
             del x, wqkv, bias, w_heads, ref, package
             torch.cuda.empty_cache()
