@@ -44,10 +44,13 @@ models, SimVP and the utilities.  Phases:
    gradient must have gone through the kernels (K1, K3 and K3-w);
 7. R15: the fused MBConv kernel vs its plain version (bf16 at BN 384 with
    1 and 4 samples per block and at BN 300, f32 at BN 8, a small odd
-   shape in both types, the 12-hour model's own MBConv), bit-identical on
-   a second launch; then the repro's entry point, which must go through
-   the kernel, with kernel, plain and stock-folded times; and the stock
-   MBConv's share of the B=25 ``--fast`` forward's kernel time;
+   shape in both types, rows of 56 pixels on bands of 6 rows, the 12-hour
+   model's own MBConv), bit-identical on
+   a second launch, every bf16 launch on the bands design (its outputs at
+   1 and 4 samples a block bit-identical) and every f32 one on the first;
+   then the repro's entry point, which must go through the kernel, only
+   on the bands design, with kernel, plain and stock-folded times; and
+   the stock MBConv's share of the B=25 ``--fast`` forward's kernel time;
 8. R1/R14: the per-head attention kernel vs its plain version at 8 and 16
    windows a CTA (bf16 at Bw 2,880, f32, a ragged Bw, 3 heads x 16),
    bit-identical on a second launch; then the repro's entry point, which
@@ -1482,7 +1485,7 @@ def train_path(card: str):
 # R15 comparison cases: (name, samples, H, W, C, dtype, samples per block);
 # C = 128 is the flagship block (hidden 512, SE 128), C = 32 the small
 # instantiation (hidden 128, SE 32); 9 x 7 and 5 samples are odd in every
-# tiled axis
+# tiled axis; rows of 56 pixels take bands of 6 rows in seven m64 tiles
 MBCONV_CASES = [
     ("repro BN=384", 384, 42, 35, 128, "bfloat16", 1),
     ("repro BN=384", 384, 42, 35, 128, "bfloat16", 4),
@@ -1493,6 +1496,8 @@ MBCONV_CASES = [
     ("small odd 9x7", 5, 9, 7, 32, "float32", 4),
     ("small odd 9x7", 5, 9, 7, 32, "bfloat16", 1),
     ("small odd 9x7", 5, 9, 7, 32, "bfloat16", 4),
+    ("wide rows 9x56", 2, 9, 56, 128, "bfloat16", 1),
+    ("wide rows 9x56", 2, 9, 56, 128, "bfloat16", 4),
 ]
 
 
@@ -1510,9 +1515,10 @@ def kernel_errors(ours, again, ref, what):
     return (ours - ref).abs().max().item(), ref.abs().max().item()
 
 
-def mbconv_errors(x, ops, spb):
+def mbconv_errors(x, ops, spb, outputs=None):
     """The fused MBConv kernel against its plain version: see
-    ``kernel_errors``."""
+    ``kernel_errors``; the kernel's output is appended to ``outputs`` when
+    it is given."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda.mbconv import fused_mbconv
@@ -1523,22 +1529,41 @@ def mbconv_errors(x, ops, spb):
         again = fused_mbconv(x, ops, samples_per_block=spb)
         ref = fused_mbconv_reference(x, ops)
         torch.cuda.synchronize()
+    if outputs is not None:
+        outputs.append(ours)
     return kernel_errors(ours, again, ref, "fused MBConv")
+
+
+def mbconv_design(before):
+    """The design the fused MBConv's launches since the route counts were
+    ``before`` took; raises when they took more than one."""
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+
+    took = {k for k, v in cuda_mbconv.launches_by_route.items()
+            if v > before.get(k, 0)}
+    if len(took) != 1:
+        raise AssertionError(f"fused MBConv launches took designs {took}")
+    return took.pop()
 
 
 def mbconv_vs_plain(dev):
     """Phase 7a: the R15 kernel against its plain version on the card, on
     the repro harness's block and on the 12-hour model's own layer-0 MBConv
-    (which has no residual: the fused form computes block(x) + x).
-    Returns max|kernel - plain| at BN 384, bf16, one sample per block."""
+    (which has no residual: the fused form computes block(x) + x).  Every
+    launch must take the design the route names, and that is the bands
+    design for every bf16 one (the first for f32); a bf16 case's outputs at 1 and 4 samples a block must be
+    bit-identical.  Returns max|kernel - plain| at BN 384, bf16, one
+    sample per block."""
     import torch
 
     from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
     from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
     from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
     from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
 
     report = None
+    by_spb = {}
     model_block = seeded_model(shipped_12hr_model_config(22.5, 15.5),
                                SEED).vit.layers[0][0]
     cases = [c + ("repro",) for c in MBCONV_CASES] + [
@@ -1549,18 +1574,41 @@ def mbconv_vs_plain(dev):
                                                                   seed=SEED)
         ops = tuple(t.to(dev) for t in mbconv_kernel_operands(block))
         x = repro.inputs(n, h, w, c, SEED + 1, dtype, dev)
-        err, scale = mbconv_errors(x, ops, spb)
+        before = dict(cuda_mbconv.launches_by_route)
+        outs = []
+        err, scale = mbconv_errors(x, ops, spb, outs)
+        design = mbconv_design(before)
         tol = TOLERANCE[dtype_name]
+        rows = cuda_mbconv.rows(w, c, dtype)
         print(f"{name:22s} {dtype_name:8s} {n:3d}x{h}x{w}x{c} spb={spb}: "
               f"max|d|={err:.3e} max|plain|={scale:.3e} rel={err / scale:.3e}"
-              f" (tol {tol:g}); second launch bit-identical", flush=True)
+              f" (tol {tol:g}); second launch bit-identical; {design} "
+              f"design, {rows} rows a band or tile", flush=True)
+        expected = cuda_mbconv.route(n, h, w, c, 4 * c, c, dtype)
+        if dtype_name == "bfloat16" and expected != "bands":
+            raise AssertionError(f"{name}: the route names the {expected} "
+                                 "design for bf16")
+        if design != expected:
+            raise AssertionError(f"{name} {dtype_name} spb={spb}: the fused "
+                                 f"MBConv took the {design} design, not "
+                                 f"the {expected}")
         if not err <= tol * scale:
             raise AssertionError(f"{name} {dtype_name} spb={spb}: the fused "
                                  f"MBConv differs from plain by {err}")
+        key = (name, dtype_name, source)
+        if design == "bands" and key in by_spb:
+            if not torch.equal(by_spb[key], outs[0]):
+                raise AssertionError(f"{name}: the bands design's output "
+                                     "depends on the samples a block")
+            print(f"{name:22s} {dtype_name:8s}: spb=1 and spb={spb} "
+                  "bit-identical", flush=True)
+        by_spb.setdefault(key, outs[0])
         if (n, dtype_name, spb, source) == (384, "bfloat16", 1, "repro"):
             report = err
-        del x, ops
+        del x, ops, outs
         torch.cuda.empty_cache()
+    del by_spb
+    torch.cuda.empty_cache()
     return report
 
 
@@ -2932,8 +2980,17 @@ def run(root: str) -> int:
     mb_err = mbconv_vs_plain(dev)
 
     phase("7b", "R15 path: the fused MBConv repro")
-    mb_launches, mb_results = repro_path(
-        repro, [cuda_mbconv], lambda: {"fused_mbconv": cuda_mbconv.launches})
+    def bands_design():
+        """The repro's launches and the bands design's; raises when one
+        took the first design (every launch there is bf16 at C 128)."""
+        first = cuda_mbconv.launches_by_route["first"]
+        if first:
+            raise AssertionError(f"{first} fused MBConv launches of the "
+                                 "repro took the first design")
+        return {"fused_mbconv": cuda_mbconv.launches,
+                "bands design": cuda_mbconv.launches_by_route["bands"]}
+
+    mb_launches, mb_results = repro_path(repro, [cuda_mbconv], bands_design)
 
     phase("7c", "the stock MBConv's share of the --fast forward")
     mbconv_share(dev, card)
@@ -3261,9 +3318,10 @@ def run(root: str) -> int:
                         repro_r5.bound_ms(2880), None))
     # the design each entry ran, where its kernel has more than one: K1's
     # and K3's bf16 strip paths, and the routes the wrappers count (phases
-    # 8b-12b refuse any other design at the repros' bf16 widths)
+    # 7b-12b refuse any other design at the repros' bf16 widths)
     designs = {"window_attention_fwd": "strip", "window_attention_bwd":
-               "strip", "perhead_attention_w8": "wgmma",
+               "strip", "fused_mbconv": "bands",
+               "perhead_attention_w8": "wgmma",
                "perhead_attention_w16": "wgmma",
                "perhead_weight_attention": "wgmma",
                "headmajor_attention": "wgmma",

@@ -30,7 +30,10 @@ second launches are bit-identical; the out-projection kernel's launches
 also took the design its route names (the strip design in bf16 at
 dim_head <= 32, the first in f32 and at dim_head 64), and its strip
 design's output does not depend on the windows a CTA.
-The keep mask is bit-equal.  Layers and inputs come from
+The fused MBConv's bf16 launches take its bands design (asserted by route, spb 1
+and 4 and a second launch bit-identical, BN 384 and 300, 9 x 7 and the
+model's layer-0 block; the prep's packed operands bit-equal to their plain
+version), f32 its first design.  The keep mask is bit-equal.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
 """
@@ -281,8 +284,9 @@ def test_backward_rejects_width_out_of_range():
 
 # the fused MBConv (R15): (samples, H, W, C); C = 128 is the flagship block,
 # C = 32 the small instantiation; 9 x 7 and 5 samples are odd in every
-# tiled axis
-MBCONV_CASES = [(3, 42, 35, 128), (5, 9, 7, 32), (2, 3, 5, 32)]
+# tiled axis; rows of 56 pixels take bands of 6 rows in bf16
+MBCONV_CASES = [(3, 42, 35, 128), (5, 9, 7, 32), (2, 3, 5, 32),
+                (2, 9, 56, 128)]
 
 
 @pytest.mark.parametrize("spb", [1, 4])
@@ -315,6 +319,106 @@ def test_fused_mbconv_rejects_other_widths():
     ops = tuple(t.to(dev) for t in mbconv_kernel_operands(repro.block(16)))
     with pytest.raises(ValueError):
         cuda_mbconv.fused_mbconv(torch.zeros(1, 4, 4, 16, device=dev), ops)
+
+
+# the fused MBConv's bands design (bf16): (samples, H, W, C, block, band
+# rows); BN 384 and 300 are the repro's and the flagship evaluation's, 9 x
+# 7 has a band of 7 rows and one of 2 in one m64 tile, "model" is the
+# 12-hour model's own layer-0 MBConv, 9 x 56 bands of 6 rows and 3 in
+# seven m64 tiles (more than the kernel's five warpgroups)
+BANDS_CASES = [(384, 42, 35, 128, "repro", 7), (300, 42, 35, 128, "repro", 7),
+               (5, 9, 7, 32, "repro", 7), (8, 42, 35, 128, "model", 7),
+               (2, 9, 56, 128, "repro", 6)]
+
+
+def _mbconv_block(c, source):
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    if source == "model":
+        return seeded_model(shipped_12hr_model_config(22.5, 15.5),
+                            chip_smoke.SEED).vit.layers[0][0]
+    return repro.block(c)
+
+
+@pytest.mark.parametrize("n,h,w,c,source,rows", BANDS_CASES)
+def test_fused_mbconv_bands_design_matches_plain(n, h, w, c, source, rows):
+    """bf16 takes the bands design on bands of ``rows`` rows: within 2e-2
+    of max|plain|, every launch counted on the "bands" route, a second
+    launch and one at 4 samples a block bit-identical to the first."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    dev = torch.device("cuda")
+    ops = tuple(t.to(dev) for t in mbconv_kernel_operands(
+        _mbconv_block(c, source)))
+    x = repro.inputs(n, h, w, c, 1, torch.bfloat16, dev)
+    assert cuda_mbconv.route(n, h, w, c, 4 * c, c, x.dtype) == "bands"
+    assert cuda_mbconv.rows(w, c, x.dtype) == rows
+    before = dict(cuda_mbconv.launches_by_route)
+    err, scale = chip_smoke.mbconv_errors(x, ops, 1)
+    with torch.inference_mode():
+        one = cuda_mbconv.fused_mbconv(x, ops, samples_per_block=1)
+        four = cuda_mbconv.fused_mbconv(x, ops, samples_per_block=4)
+    assert torch.equal(one, four)
+    after = dict(cuda_mbconv.launches_by_route)
+    assert after.get("bands", 0) == before.get("bands", 0) + 4
+    assert after.get("first", 0) == before.get("first", 0)
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("n,h,w,c", [(3, 42, 35, 128), (5, 9, 7, 32)])
+def test_fused_mbconv_f32_keeps_the_first_design(n, h, w, c):
+    """f32 runs the first design (CUDA-core products), within 1e-4."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    dev = torch.device("cuda")
+    ops = tuple(t.to(dev) for t in mbconv_kernel_operands(repro.block(c)))
+    x = repro.inputs(n, h, w, c, 1, torch.float32, dev)
+    assert cuda_mbconv.route(n, h, w, c, 4 * c, c, x.dtype) == "first"
+    before = dict(cuda_mbconv.launches_by_route)
+    err, scale = chip_smoke.mbconv_errors(x, ops, 4)
+    after = dict(cuda_mbconv.launches_by_route)
+    assert after.get("first", 0) == before.get("first", 0) + 2
+    assert after.get("bands", 0) == before.get("bands", 0)
+    assert err <= TOL[torch.float32] * scale, err
+
+
+def test_fused_mbconv_routes_are_named_by_the_kernels_export():
+    """The route export: bf16 the bands design at both widths (bands of 7
+    rows up to rows of 49 pixels at C 128, fewer beyond, none past 149),
+    f32 the first design, none at other widths; the prep kernel's packed
+    operands bit-equal to ``packed_reference``."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import mbconv as cuda_mbconv
+    from vit_grid_model_tpu_torch.ops.mbconv import mbconv_kernel_operands
+    from vit_grid_model_tpu_torch.repros import fused_mbconv as repro
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert cuda_mbconv.route(384, 42, 35, 128, 512, 128, bf16) == "bands"
+    assert cuda_mbconv.route(5, 9, 7, 32, 128, 32, bf16) == "bands"
+    assert cuda_mbconv.route(1, 4, 49, 128, 512, 128, bf16) == "bands"
+    assert cuda_mbconv.route(1, 4, 50, 128, 512, 128, bf16) == "bands"
+    assert cuda_mbconv.route(1, 4, 149, 128, 512, 128, bf16) == "bands"
+    assert cuda_mbconv.route(8, 42, 35, 128, 512, 128, f32) == "first"
+    assert [cuda_mbconv.rows(w, 128, bf16) for w in (49, 50, 56, 149)] == [
+        7, 6, 6, 1]
+    for args in ((1, 4, 4, 16, 64, 16, bf16), (1, 4, 150, 128, 512, 128,
+                                                bf16)):
+        with pytest.raises(ValueError):
+            cuda_mbconv.route(*args)
+    dev = torch.device("cuda")
+    for c in (128, 32):
+        ops = tuple(t.to(dev) for t in mbconv_kernel_operands(
+            repro.block(c)))
+        assert torch.equal(cuda_mbconv.pack(ops),
+                           cuda_mbconv.packed_reference(ops))
 
 
 @pytest.mark.parametrize("wpc", [8, 16])

@@ -101,7 +101,7 @@ def load() -> ctypes.CDLL:
         lib.vgm_window_attention_wgrad.argtypes = [ptr] * 6 + [i32] * 4 + [
             ptr]
         lib.vgm_dropout_keep_mask.argtypes = [ptr] + [i32] * 5 + [f32, ptr]
-        lib.vgm_fused_mbconv.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
+        lib.vgm_fused_mbconv.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]
         lib.vgm_perhead_attention.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.vgm_maxvit_layer_attention.argtypes = ([ptr] * 18 + [i32] * 10
                                                    + [ptr])
@@ -185,7 +185,13 @@ def load() -> ctypes.CDLL:
         lib.vgm_window_attention_bwd_smem_bytes.argtypes = [i32] * 3
         lib.vgm_window_attention_bwd_smem_bytes.restype = ctypes.c_long
         lib.vgm_fused_mbconv_row_tile.argtypes = [i32] * 3
-        lib.vgm_fused_mbconv_row_tile.restype = ctypes.c_int
+        lib.vgm_fused_mbconv_route.argtypes = [i32] * 7
+        lib.vgm_fused_mbconv_packed_elems.argtypes = [i32] * 2
+        lib.vgm_fused_mbconv_pack.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+        for fn in (lib.vgm_fused_mbconv_row_tile, lib.vgm_fused_mbconv_route,
+                   lib.vgm_fused_mbconv_packed_elems,
+                   lib.vgm_fused_mbconv_pack):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
