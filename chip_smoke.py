@@ -25,7 +25,8 @@ models, SimVP and the utilities.  Phases:
    kernel and plain times at the flagship shape beside the bound; and K1
    in bf16 off the strip path (dim 256, 8 heads x 64), held to the f32
    plain version within 2 x the plain bf16 version's own error;
-2b. dropout keep mask: the CUDA hash bit-equal to its plain version;
+2b. dropout keep mask: the CUDA hash bit-equal to its plain version, at
+    32 and 3 heads, each launch on the writer's chunks design;
 2c. forward kernel with dropout vs plain with the same mask, in the
    training cases (windows of 7 and 5), bit-identical on a second launch;
    kernel and plain times at Bw 1,440;
@@ -68,10 +69,12 @@ models, SimVP and the utilities.  Phases:
    3 heads x 16, a diverging-score case in both types; R10 also at n 64
    and 9, Bw 2,880 and 37), bit-identical on a second launch, R10's lines
    with the design its launches took (bf16 at the repro's widths the strip
-   design, K1's strip body without the out-projection; f32 the first);
+   design, K1's strip body without the out-projection; f32 the first), as
+   R11's lines (bf16 the ring design, f32 the first);
    then the four repros' entry points, each of which must launch its
-   kernel (R10 only through the strip design), with kernel, plain and
-   R1-kernel times (R11 also the core against SDPA);
+   kernel (R10 only through the strip design, R11's core only through the
+   ring design), with kernel, plain and R1-kernel times (R11 also the core
+   against SDPA);
 11. R3 and the out-projection family: R3's cross-head indicator-norm
    kernel on phase 10's cases; the out-projection kernel's shipping
    structure (ws_2pass_pwout) on the same cases, the other R12/R13
@@ -1104,8 +1107,9 @@ def bwd_errors(xt, k, dy, seed, rate):
 
 
 def dropout_mask_check(dev):
-    """Phase 2b: the CUDA keep mask against ``ops/dropout.py::keep_mask``.
-    Returns (max|diff|, kernel ms, plain ms) at the flagship shape."""
+    """Phase 2b: the CUDA keep mask against ``ops/dropout.py::keep_mask``,
+    each launch on the kernel's chunks design.  Returns (max|diff|, kernel
+    ms, plain ms) at the flagship shape."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
@@ -1114,8 +1118,12 @@ def dropout_mask_check(dev):
 
     report = None
     for heads in (32, 3):
+        before = dict(cuda_attn.mask_route_launches)
         ours = cuda_attn.dropout_keep_mask(DROPOUT_SEED, TRAIN_WINDOWS, heads,
                                            53, DROPOUT, dev)
+        launched_design(cuda_attn, before, "chunks", 1,
+                        f"keep mask heads={heads}",
+                        cuda_attn.mask_route_launches)
         ref = keep_mask(DROPOUT_SEED, TRAIN_WINDOWS, heads, 53, DROPOUT,
                         device=dev)
         torch.cuda.synchronize()
@@ -1124,7 +1132,8 @@ def dropout_mask_check(dev):
         worst = (dropped - DROPOUT).abs().max().item()
         err = (ours - ref).abs().max().item()
         line = (f"keep mask heads={heads:2d} Bw={TRAIN_WINDOWS} seed="
-                f"{DROPOUT_SEED}: bit-equal {equal}; dropped share per head "
+                f"{DROPOUT_SEED}: chunks design; bit-equal {equal}; dropped "
+                "share per head "
                 f"{dropped.min().item():.4f}..{dropped.max().item():.4f} "
                 f"(rate {DROPOUT})")
         if heads == 32:
@@ -1697,6 +1706,18 @@ def wgmma_plan_bytes(n, dim, dh, buffers=3, warpgroups=3,
     return a128(off + buffers * 12)
 
 
+def staged_ring_bytes(dh, stages=2):
+    """Shared memory a CTA of R11's ring design takes: ``stages`` slots of
+    q, k and v, 64 bf16 rows each at a stride of dim_head + 8."""
+    return stages * 3 * 64 * (dh + 8) * 2
+
+
+def staged_design(dtype_name):
+    """The design R11's core takes: the ring design in bf16 (every width
+    the entry takes), the first design in f32."""
+    return "ring" if dtype_name == "bfloat16" else "first"
+
+
 def grouped_design(n, dim, dh, dtype_name, group=2, indicator_norm=False):
     """The design R4's (and, with ``indicator_norm``, R3's) kernel takes at
     these widths and heads a staged x: the wgmma design in bf16 at dim_head
@@ -1922,8 +1943,9 @@ def stacked_design(n, dim, dh, dtype_name):
 def variants_vs_plain(dev):
     """Phase 10a: R4's, R10's and R11's kernels, R11 whole and R9's route
     against their plain versions, R10 and R9 also at n 64, 49 and 9, each
-    of R4's, R10's and R9's launches on the design ``grouped_design``,
-    ``stacked_design`` or ``perhead_design`` names (R4's wgmma design
+    of R4's, R10's, R9's and R11's launches on the design
+    ``grouped_design``, ``stacked_design``, ``perhead_design`` or
+    ``staged_design`` names (R4's wgmma design
     bit-identical to R1's, its first design in bf16 on
     ``GROUPED_FIRST_CASES``).  Returns {route: max|kernel - plain|} at Bw
     2,880 and n 56 in bf16."""
@@ -1951,6 +1973,7 @@ def variants_vs_plain(dev):
                 before = dict(av.stacked_route_launches)
                 before_r9 = dict(av.perhead_route_launches)
                 before_r4 = dict(av.headmajor_route_launches)
+                before_r11 = dict(av.staged_core_route_launches)
                 ours = kernel()
                 again = kernel()
                 torch.cuda.synchronize()
@@ -1972,6 +1995,12 @@ def variants_vs_plain(dev):
                                                  "wgmma kernel")
                         design += ", bit-identical to R1's kernel"
                         del r1_out
+                if route in ("staged_attention_core", "staged_attention"):
+                    want = staged_design(dtype_name)
+                    launched_design(av, before_r11, want, 2,
+                                    f"{name} {dtype_name} {route}",
+                                    av.staged_core_route_launches)
+                    design = f"; {want} design"
                 if route == r9:
                     want = perhead_design(n, dim, dh, dtype_name)
                     launched_design(av, before_r9, want, 2,
@@ -3055,6 +3084,14 @@ def run(root: str) -> int:
                                  "widths")
         return {**counts, f"{name} wgmma design": by_route["wgmma"]}
 
+    def ring_design(name, counts, by_route):
+        """The repro's launches, and R11's ring-design launches; raises
+        when one took the first design in bf16."""
+        if by_route["first"]:
+            raise AssertionError(f"{by_route['first']} {name} launches took "
+                                 "the first design in bf16")
+        return {**counts, "ring design": by_route["ring"]}
+
     for module, route, count in (
             (repro_r4, "headmajor_attention", lambda: av.headmajor_launches),
             (repro_r10, "stacked_softmax_attention",
@@ -3072,6 +3109,9 @@ def run(root: str) -> int:
         if module is repro_r4:
             counts = (lambda: wgmma_design(route, grouped_wgmma(
                 route, {route: count()}, av.headmajor_route_launches)))
+        if module is repro_r11:
+            counts = (lambda: wgmma_design(route, ring_design(
+                route, {route: count()}, av.staged_core_route_launches)))
         variant_runs[route] = repro_path(module, [av], counts)
 
     phase("11a", "R3 and the out-projection kernel (R12, R13, R2, R8) vs "
@@ -3327,7 +3367,9 @@ def run(root: str) -> int:
                "headmajor_attention": "wgmma",
                "crosshead_norm_attention": "wgmma",
                "maxvit_layer_attention": "strip",
-               "stacked_softmax_attention": "strip"}
+               "stacked_softmax_attention": "strip",
+               "dropout_keep_mask": "chunks",
+               "staged_attention_core": "ring"}
     designs.update({k[0]: "strip" for k in kernels
                     if k[0].startswith(("outproj_", "headpack_"))})
     print(json.dumps({"kernels": [

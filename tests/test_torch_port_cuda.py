@@ -33,7 +33,12 @@ design's output does not depend on the windows a CTA.
 The fused MBConv's bf16 launches take its bands design (asserted by route, spb 1
 and 4 and a second launch bit-identical, BN 384 and 300, 9 x 7 and the
 model's layer-0 block; the prep's packed operands bit-equal to their plain
-version), f32 its first design.  The keep mask is bit-equal.  Layers and inputs come from
+version), f32 its first design.  The keep mask is bit-equal, every launch
+on its chunks design (ragged totals, n 1-64, seeds 1234 and 2**31 - 2), a
+second launch bit-identical.  R11's core in bf16 runs its ring design at n
+17-64, dim_head 16-64, Bw 1, 7 and 2,881, with head 0's scores ~200 below
+and head 2's spread 25 times (2e-2 of max|plain|, second launch
+bit-identical), f32 its first design.  Layers and inputs come from
 ``chip_smoke.attention_case`` and the repros under ``repros/`` (numpy
 seeds).
 """
@@ -142,6 +147,37 @@ def test_keep_mask_bit_equal(heads, seed):
     assert torch.equal(ours, keep_mask(seed, 60, heads, 53, 0.1,
                                        device=torch.device("cuda")))
     assert torch.equal(ours.cpu(), keep_mask(seed, 60, heads, 53, 0.1))
+
+
+# (Bw, heads, n) of the keep mask's chunks design: totals that are no
+# multiple of 4 (3 x 3 x 53^2 = 25,281; 5 x 3 x 7^2; 7 x 2 x 3^2), n = 1,
+# and full 64-token windows
+MASK_CASES = [(3, 3, 53), (60, 4, 53), (5, 3, 7), (4, 3, 64), (1, 1, 1),
+              (7, 2, 3)]
+
+
+@pytest.mark.parametrize("seed", [1234, 2 ** 31 - 2])
+@pytest.mark.parametrize("bw,heads,n", MASK_CASES)
+def test_keep_mask_chunks_design_bit_equal(bw, heads, n, seed):
+    _need_cuda()
+    dev = torch.device("cuda")
+    before = dict(cuda_attn.mask_route_launches)
+    ours = cuda_attn.dropout_keep_mask(seed, bw, heads, n, 0.1, dev)
+    again = cuda_attn.dropout_keep_mask(seed, bw, heads, n, 0.1, dev)
+    torch.cuda.synchronize()
+    took = {d: c - before.get(d, 0) for d, c in
+            cuda_attn.mask_route_launches.items() if c > before.get(d, 0)}
+    assert took == {"chunks": 2}
+    assert torch.equal(ours, again)
+    assert torch.equal(ours, keep_mask(seed, bw, heads, n, 0.1, device=dev))
+
+
+def test_keep_mask_rejects_shapes_out_of_range():
+    _need_cuda()
+    for n in (0, 16385):
+        with pytest.raises(ValueError):
+            cuda_attn.dropout_keep_mask(1, 2, 2, n, 0.1,
+                                        torch.device("cuda"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -655,6 +691,84 @@ def test_variant_matches_plain(bw, n, dim, heads, dim_head, offset, dtype,
     assert counts[route] == 2
     err, scale = chip_smoke.kernel_errors(ours, again, ref, route)
     assert err <= TOL[dtype] * scale, err
+
+
+def _staged_operands(bw, n, dim_head, dtype, seed, heads=3):
+    """R11's staged operands from a numpy seed: l2-normalized qn, kn and v
+    (heads, bw, n, dim_head) in ``dtype``, bias (heads, n, n) f32 with head
+    0's scores ~200 below the others and the last head's spread 25 times."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((heads, bw, n, dim_head))
+               for _ in range(3))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    bias = rng.standard_normal((heads, n, n))
+    bias[0] -= 200.0
+    bias[-1] *= 25.0
+    dev = torch.device("cuda")
+    return (*(torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+              for a in (q, k, v)),
+            torch.from_numpy(bias.astype(np.float32)).to(dev))
+
+
+def _staged_launch(qn, kn, v, bias, want):
+    """R11's core twice; asserts both launches took the design ``want``
+    and gave the same bits.  Returns (output, plain output)."""
+    from vit_grid_model_tpu_torch.ops.attention_variants import (
+        staged_headmajor_core)
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+
+    before = dict(av.staged_core_route_launches)
+    with torch.inference_mode():
+        ref = staged_headmajor_core(qn, kn, v, bias)
+        ours = av.staged_attention_core(qn, kn, v, bias)
+        again = av.staged_attention_core(qn, kn, v, bias)
+    torch.cuda.synchronize()
+    took = {d: c - before.get(d, 0) for d, c in
+            av.staged_core_route_launches.items() if c > before.get(d, 0)}
+    assert took == {want: 2}
+    assert torch.equal(ours, again)
+    return ours, ref
+
+
+@pytest.mark.parametrize("bw", [1, 7, 2881])
+@pytest.mark.parametrize("dim_head", [16, 32, 48, 64])
+@pytest.mark.parametrize("n", [17, 49, 53, 56, 64])
+def test_staged_core_ring_design_matches_plain(n, dim_head, bw):
+    """R11's core in bf16 on its ring design at every width the entry
+    takes, a window or a few and more pairs than the grid has CTAs."""
+    _need_cuda()
+    ours, ref = _staged_launch(
+        *_staged_operands(bw, n, dim_head, torch.bfloat16, n + dim_head),
+        "ring")
+    assert bool(torch.isfinite(ours.float()).all())
+    scale = ref.float().abs().max().item()
+    err = (ours.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("bw,n,dim_head", [(7, 56, 32), (5, 17, 64)])
+def test_staged_core_f32_keeps_the_first_design(bw, n, dim_head):
+    _need_cuda()
+    ours, ref = _staged_launch(
+        *_staged_operands(bw, n, dim_head, torch.float32, 5), "first")
+    scale = ref.abs().max().item()
+    assert (ours - ref).abs().max().item() <= TOL[torch.float32] * scale
+
+
+def test_staged_core_route_and_plan_are_the_kernels():
+    """The route the wrapper counts is the kernel's export; the ring's
+    shared memory is ``chip_smoke.staged_ring_bytes`` at every dim_head,
+    one CTA or more an SM."""
+    _need_cuda()
+    from vit_grid_model_tpu_torch.ops.cuda import attention_variants as av
+
+    for dh in (16, 32, 48, 64):
+        assert av.staged_core_route(56, dh, torch.bfloat16) == "ring"
+        assert av.staged_core_route(56, dh, torch.float32) == "first"
+        regs, local, smem, per_sm, stages = av.staged_core_occupancy(dh)
+        assert smem == chip_smoke.staged_ring_bytes(dh, stages)
+        assert per_sm >= 1 and local == 0
 
 
 @pytest.mark.parametrize("heads_per_group", [1, 2, 3])

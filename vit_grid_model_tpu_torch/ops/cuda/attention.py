@@ -7,7 +7,8 @@ kernels under ``csrc/``, their ctypes binding and their launch counters.
 * ``window_attention_wgrad.cu`` (K3-w: on K3's bf16 tensor-core path, the
   weight gradients dWqkv and dWout from the operands K3 writes);
 * ``dropout_keep_mask.cu`` (K1-d alone: writes the keep mask, so that the
-  card can compare it with ``ops/dropout.py::keep_mask``).
+  card can compare it with ``ops/dropout.py::keep_mask``; on the CPU
+  ``dropout_keep_mask`` is that plain version).
 
 ``window_attention`` takes the arguments of the plain version
 ``ops.attention.attention`` plus a dropout seed and rate.  For a tensor on
@@ -23,6 +24,7 @@ The kernels live in the library that ``ops/cuda/library.py`` builds from
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -49,6 +51,10 @@ wgrad_launches = 0    # K3-w, the weight gradients of K3's tensor-core path
 # csrc/dropout_hash.cuh (K1-d) inline for every score
 hash_launches = 0
 mask_launches = 0     # the standalone keep-mask kernel
+# its launches by the design they took, as MASK_ROUTES names the kernel's
+# route
+mask_route_launches: Counter = Counter()
+MASK_ROUTES = ("chunks",)
 
 
 def reset_launches() -> None:
@@ -56,6 +62,7 @@ def reset_launches() -> None:
     global mask_launches
     launches = bwd_launches = wgrad_launches = hash_launches = 0
     mask_launches = 0
+    mask_route_launches.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -261,15 +268,26 @@ def window_attention_bwd(x: Tensor, k: KernelInputs, dy: Tensor, seed: int,
 def dropout_keep_mask(seed: int, bw: int, heads: int, n: int, rate: float,
                       device: torch.device) -> Tensor:
     """The keep mask of ``ops/dropout.py::keep_mask``, written on the card
-    by the kernel that evaluates the attention kernels' hash."""
+    by the kernel that evaluates the attention kernels' hash (on the CPU,
+    that plain version)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return keep_mask(seed, bw, heads, n, rate, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_keep_mask: no kernel for {device}")
+    if not (0 < n <= 16384 and bw * heads < 2 ** 31):
+        raise ValueError(f"dropout_keep_mask: n={n} (1..16384), Bw={bw} x "
+                         f"heads={heads} (< 2**31) out of the kernel's range")
     threshold, scale = keep_constants(rate)
     out = torch.empty(bw, heads, n, n, device=device)
-    library.check(library.load().vgm_dropout_keep_mask(
+    lib = library.load()
+    library.check(lib.vgm_dropout_keep_mask(
         out.data_ptr(), bw, heads, n, seed, threshold, scale,
         library.stream(out)),
         "dropout_keep_mask")
     global mask_launches
     mask_launches += 1
+    mask_route_launches[MASK_ROUTES[lib.vgm_dropout_keep_mask_route()]] += 1
     return out
 
 

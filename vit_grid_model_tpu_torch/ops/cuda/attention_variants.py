@@ -15,9 +15,10 @@ CUDA kernels under ``csrc/`` and their launch counters.
   widths on K1's strip body without its out-projection (``stacked_route``
   names the design a launch takes);
 * ``staged_attention_core`` (``staged_attention_core.cu``): R11's core on
-  head-major operands, and ``staged_attention``, R11 whole, whose staging
-  around the kernel is stock PyTorch (cuBLAS), as the repro leaves it to
-  XLA;
+  head-major operands (in bf16 on a persistent grid with a ring of
+  windows, ``staged_core_route``), and ``staged_attention``, R11 whole,
+  whose staging around the kernel is stock PyTorch (cuBLAS), as the repro
+  leaves it to XLA;
 * ``maxvit_layer_attention`` (``maxvit_layer_attention.cu``): R7, one
   MaxViT layer's block and grid attention in one cluster launch, on K1's
   strip body in bf16;
@@ -43,8 +44,9 @@ launches the kernel or raises.  The kernels live in the library that
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +89,10 @@ BIAS_LD = 72                  # floats a bias row the wgmma design reads
 # the kernels' routes
 headmajor_route_launches: Counter = Counter()
 crosshead_route_launches: Counter = Counter()
+# R11's core by the design it took, as STAGED_ROUTES names the kernel's
+# route
+staged_core_route_launches: Counter = Counter()
+STAGED_ROUTES = ("first", "ring")
 WGMMA_GROUP = 2               # R4's and R3's heads a staged x by default
 
 WINDOWS_PER_CTA = 8           # R4, R9 and R10, as R1
@@ -99,6 +105,7 @@ def reset_launches() -> None:
     perhead_route_launches.clear()
     headmajor_route_launches.clear()
     crosshead_route_launches.clear()
+    staged_core_route_launches.clear()
     outproj_launches.clear()
     outproj_route_launches.clear()
     headpack_launches.clear()
@@ -414,11 +421,30 @@ def stacked_softmax_attention(x: Tensor, wqkv: Tensor,
     return out
 
 
+def staged_core_route(n: int, dh: int, dtype: torch.dtype) -> str:
+    """The design a launch of R11's core at these widths takes, as the
+    kernel's own ``vgm_staged_attention_core_route`` says: "ring" (bf16,
+    n <= 64, dim_head 16, 32, 48 or 64) or "first" (f32)."""
+    return STAGED_ROUTES[library.load().vgm_staged_attention_core_route(
+        n, dh, int(dtype == torch.bfloat16))]
+
+
+def staged_core_occupancy(dh: int) -> Tuple[int, int, int, int, int]:
+    """The ring design's (registers, local bytes a thread, shared memory a
+    CTA, CTAs an SM, windows in the ring) at dim_head ``dh``."""
+    out = (ctypes.c_int * 5)()
+    if library.load().vgm_staged_attention_core_occupancy(dh, out) != 0:
+        raise RuntimeError(f"staged_attention_core: no occupancy at "
+                           f"dim_head {dh}")
+    return tuple(out)
+
+
 def staged_attention_core(qn: Tensor, kn: Tensor, v: Tensor,
                           bias: Tensor) -> Tensor:
     """R11's core on head-major (heads, Bw, n, dh) ``qn``, ``kn``, ``v`` and
     ``bias`` (heads, n, n) f32; the result is (heads, Bw, n, dh) in v's
-    dtype."""
+    dtype.  bf16 runs the ring design, f32 the first design
+    (``staged_core_route``)."""
     if qn.device.type == "cpu":
         return plain.staged_headmajor_core(qn, kn, v, bias)
     name = "staged_attention_core"
@@ -431,6 +457,9 @@ def staged_attention_core(qn: Tensor, kn: Tensor, v: Tensor,
     if not (n <= 64 and dh % 16 == 0 and dh <= 64):
         raise ValueError(f"{name}: n={n} (<= 64) and dim_head={dh} (a "
                          "multiple of 16, <= 64) out of the kernel's range")
+    if any(t.data_ptr() % 16 for t in (qn, kn, v)):
+        raise ValueError(f"{name}: qn, kn and v must be 16-byte aligned")
+    route = staged_core_route(n, dh, qn.dtype)
     out = torch.empty_like(qn)
     library.check(library.load().vgm_staged_attention_core(
         qn.data_ptr(), kn.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -438,6 +467,7 @@ def staged_attention_core(qn: Tensor, kn: Tensor, v: Tensor,
         library.stream(qn)), name)
     global staged_core_launches
     staged_core_launches += 1
+    staged_core_route_launches[route] += 1
     return out
 
 
