@@ -15,8 +15,9 @@ variants R4, R10, R9, R11 and R3, the repros of the out-projection
 family R12-R13, R2 and R8, and the head-pack repros R5 and R6, then the
 inference entry points (serving, re-analysis generation and station
 evaluation) at the shipped configuration, data parallelism, the class head
-and int8 PTQ of the resnet convs, and last the legacy station and grid
-models, SimVP and the utilities.  Phases:
+and int8 PTQ of the resnet convs, the legacy station and grid models, SimVP
+and the utilities, and last the eight legacy datasets and the
+station-image variant of the 12-hour model.  Phases:
 
 0. device: CUDA present, versions, the card's name and power limit;
 1. build: compile the kernel library and the data loader;
@@ -151,6 +152,25 @@ models, SimVP and the utilities.  Phases:
    writes its trace file, and ``oom_guard`` rewraps a real CUDA
    out-of-memory error.  No hand-written kernel launches in it (K1, K3,
    K3-w and the hash counters stay at 0).  Each sub-phase prints its
+   seconds;
+17. the eight legacy datasets and the station-image model: (a) on phase
+   4's tree with ``write_station_images`` over its first 25 samples'
+   window, at the shipped geometry (13 input, 12 output, 13 history
+   hours, 6 species: 28 channels a step), one ``BatchLoader`` batch of 25
+   from each class in its tuple's shapes and dtypes, the six in-memory
+   classes on seeded arrays at 400 + 150 stations; the output-window-only
+   V2 and the station-image class once with the native plane and once
+   without, byte-equal; ``native.unsupported_count()`` 0; each class's
+   samples/s; (b) the station-image 12-hour model (25 channels, the
+   station image at 24, hidden 128, 32 heads x 32, seeded) in f32, one
+   sample on the GPU against the CPU within 1e-3 of max|out|, K1 launched
+   twice, both on its first design; (c) the same model in the --fast
+   configuration (bf16, fused stem, NHWC input) at B = 25, its input
+   staged by ``model_input_to_nhwc`` and ``host_stage_dtype``, against
+   the standard path of that configuration on the (B, T, C, H, W) input
+   within 1e-6 of max|out| (the same launches on the same operands:
+   bit-equal by construction), K1 launched twice a forward, both on its
+   strip path; the forward's median ms.  Each sub-phase prints its
    seconds.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
@@ -485,6 +505,17 @@ def whole_model(dev):
         raise AssertionError(f"GPU and CPU forwards differ: {rel}")
 
 
+# K1's launches on each path that runs it, by the design each launch took
+# (the wrapper's fwd_route_launches, read where the path reads its count)
+K1_DESIGNS_BY_PATH: dict = {}
+
+
+def note_k1_designs(path: str) -> None:
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    K1_DESIGNS_BY_PATH[path] = dict(cuda_attn.fwd_route_launches)
+
+
 def main_path(card: str, root: str):
     """Phase 4: the --fast evaluation CLI over a synthetic tree, written
     under ``root`` and kept for phase 13.  Returns (K1 launches, the tree's
@@ -510,6 +541,7 @@ def main_path(card: str, root: str):
     metrics = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
+    note_k1_designs("evaluation")
     if cuda_attn.bwd_launches or cuda_attn.hash_launches:
         raise AssertionError("the evaluation ran a backward or dropout")
     with open(os.path.join(log_dir, "test_smoke.log")) as f:
@@ -575,6 +607,7 @@ def serving_path(dev, card: str):
         out = f.predict(x, ts)
         latencies.append(1e3 * (time.perf_counter() - t0))
     launches = cuda_attn.launches
+    note_k1_designs("serving")
     expect = 2 * sum(cfg.depth_tuple) * (SERVING_WARMUP + SERVING_REQUESTS)
     print(f"Forecaster(device='cuda'): {f.cfg.compute_dtype}, fused stem "
           f"{f.cfg.fuse_lead_stem}; construction with {SERVING_WARMUP} "
@@ -667,6 +700,7 @@ def generation_path(paths, root: str, card: str):
     written = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
+    note_k1_designs("generation")
     files = sorted(os.listdir(out_dir))
     print(f"generation: {samples} samples, batches {timing.samples}; "
           f"{len(files)} field files; K1 launches {launches} (expected 2 x "
@@ -707,6 +741,7 @@ def station_path(paths, root: str, card: str):
     metrics = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
+    note_k1_designs("station evaluation")
     batches = len(timing.samples)
     summary = metrics.summary()
     with open(os.path.join(log_dir, "test_smoke_by_stn.log")) as f:
@@ -965,6 +1000,7 @@ def dp_run(paths, log_dir: str, group):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = cuda_attn.launches
+    eval_designs = dict(cuda_attn.fwd_route_launches)
     log = (read_log(os.path.join(log_dir, "test_dp.log"))
            if metrics is not None else None)
 
@@ -984,6 +1020,7 @@ def dp_run(paths, log_dir: str, group):
     step_s = time.perf_counter() - t0
     counts = (cuda_attn.launches, cuda_attn.bwd_launches,
               cuda_attn.wgrad_launches, cuda_attn.hash_launches)
+    train_designs = dict(cuda_attn.fwd_route_launches)
     digest = hashlib.sha256()
     for k, v in state.model.state_dict().items():
         digest.update(k.encode())
@@ -991,7 +1028,8 @@ def dp_run(paths, log_dir: str, group):
                       .view(torch.uint8).numpy().tobytes())
     return dict(log=log, eval_launches=eval_launches, eval_s=eval_s,
                 loss=loss, train_counts=counts, step_s=step_s,
-                digest=digest.hexdigest())
+                digest=digest.hexdigest(), eval_designs=eval_designs,
+                train_designs=train_designs)
 
 
 def dp_rank(paths, root: str):
@@ -1058,6 +1096,10 @@ def ranks_on_one_card(paths, root: str, card: str):
           f"and step {r0['step_s']:.2f}; one process {one_s:.1f}, of which "
           f"evaluation {one['eval_s']:.1f} and step {one['step_s']:.2f}; "
           f"card: {card}", flush=True)
+    K1_DESIGNS_BY_PATH["data parallel evaluation, rank 0"] = r0[
+        "eval_designs"]
+    K1_DESIGNS_BY_PATH["data parallel train step, rank 0"] = r0[
+        "train_designs"]
     return r0["eval_launches"], r0["train_counts"]
 
 
@@ -1450,6 +1492,7 @@ def train_path(card: str):
         cuda_attn.reset_launches()
         state = cli.main(argv, step_seconds=seconds, log=log)
         torch.cuda.synchronize()
+        note_k1_designs("training")
         counts = {"window_attention_fwd": cuda_attn.launches,
                   "window_attention_bwd": cuda_attn.bwd_launches,
                   "window_attention_wgrad": cuda_attn.wgrad_launches,
@@ -2428,6 +2471,7 @@ def class_head_path(dev, card: str):
     cuda_attn.reset_launches()
     loss = step()
     torch.cuda.synchronize()
+    note_k1_designs("class-head step")
     counts = {"window_attention_fwd": cuda_attn.launches,
               "window_attention_bwd": cuda_attn.bwd_launches,
               "window_attention_wgrad": cuda_attn.wgrad_launches,
@@ -2526,6 +2570,7 @@ def int8_path(dev, card: str):
         y_int8 = model(x, ts)
         torch.cuda.synchronize()
         launches = (cuda_attn.launches, Q.launches)
+        note_k1_designs("int8 forward")
         for h in hooks:
             h.remove()
         y_bf16 = float_model(x, ts)
@@ -2900,6 +2945,336 @@ def legacy_path(dev, card: str, root: str):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the eight legacy datasets and the station-image MetNet3
+# ---------------------------------------------------------------------------
+
+# (a) each dataset over the first 25 samples of phase 4's tree at the
+# shipped geometry: 13 input, 12 output and 13 history hours, 6 species
+# (28 channels a step); the station arrays at phase 16a's 400 + 150
+# stations, the in-memory simulation tensors shaped as phase 16a's
+# simulation (4 cycles) and simulation_avg inputs
+DATASET_DIMS = dict(input_dim=13, output_dim=12, prev_len=13,
+                    korea_stn_num=400, china_stn_num=150)
+DATASET_BATCH = FLAGSHIP_BATCH
+DATASET_FEAT_DIM = 12
+IN_MEMORY_DATASETS = ("AirWithFixedSatDataset", "AirWithSimulationDataset",
+                      "AirOnlyDataset", "AirWithSimulationDatasetV2",
+                      "AirSimulationReanalysisDataset",
+                      "AirSimulationReanalysisDatasetWithCurr")
+LAZY_DATASETS = ("AirSimulationReanalysisDatasetV2",
+                 "AirSimulationReanalysisDatasetWithStationImgs")
+# (b, c) the station-image variant of the 12-hour model: channel 24 of 25
+# is the station image, standardized in the forward with the PM2.5 planes
+STN_IMG_CHANNEL = 24
+STN_IMG_F32_REL = 1e-3
+# the --fast forward against the standard bf16 path: the same fused stem
+# and the same K1 strip launches on the same operands, so the two are
+# bit-equal by construction; a staging fault that moves a few pixels (a
+# pad off by a column, the station image in another slot) must show
+STN_IMG_FAST_REL = 1e-6
+
+
+def dataset_times():
+    """The hourly times of the first DATASET_BATCH samples of phase 4's
+    window: exactly one batch."""
+    from datetime import timedelta
+
+    from vit_grid_model_tpu_torch.data.timeutil import eval_time_list
+
+    start = EVAL_WINDOW[0]
+    return eval_time_list(start, start + timedelta(hours=DATASET_BATCH - 1),
+                          DATASET_DIMS["prev_len"], DATASET_DIMS["output_dim"])
+
+
+def dataset_arrays(t: int):
+    """The in-memory arrays over ``t`` hours, from a numpy seed; column 6
+    of the features is the 0/1 validity flag the classes invert."""
+    rng = np.random.default_rng(SEED + 17)
+    stn = DATASET_DIMS["korea_stn_num"] + DATASET_DIMS["china_stn_num"]
+    korea, t_out = DATASET_DIMS["korea_stn_num"], DATASET_DIMS["output_dim"]
+    feats = (rng.random((t, stn, DATASET_FEAT_DIM)) * 60).astype(np.float32)
+    feats[:, :, 6] = rng.integers(0, 2, (t, stn))
+    return dict(
+        feats=feats, masks=rng.random((t, stn)) > 0.2,
+        sat_outputs=(rng.random((t, stn, t_out)) * 25).astype(np.float32),
+        sat_inputs=(rng.random((t, stn, 13)) * 25).astype(np.float32),
+        simulation=(rng.random((t, korea, t_out * 24 + 4)) * 25).astype(
+            np.float32),
+        simulation_pm=(rng.random((t, korea, t_out * 6 + 4)) * 25).astype(
+            np.float32),
+        reanalysis=(rng.random((t,) + LEGACY_GRID) * 100 - 5).astype(
+            np.float32))
+
+
+def dataset_shapes(name: str):
+    """Each field's (shape, dtype) in a batch of ``name``."""
+    b, (h, w) = DATASET_BATCH, LEGACY_GRID
+    d = DATASET_DIMS
+    t_in, t_out, prev = d["input_dim"], d["output_dim"], d["prev_len"]
+    stn, korea = d["korea_stn_num"] + d["china_stn_num"], d["korea_stn_num"]
+    f32, i32, bool_ = np.float32, np.int32, np.bool_
+    station_in = [((b, t_in, stn, DATASET_FEAT_DIM), f32),
+                  ((b, t_in + t_out, stn), bool_)]
+    targets = [((b, t_out, korea), i32), ((b, t_out, korea), f32),
+               ((b, t_out, korea), bool_)]
+    times = ((b, t_in + t_out, 4), f32)
+    prev_stn = ((b, prev, stn), f32)
+    sim_stn = ((b, korea, t_out * 24 + 4), f32)
+    re, cls = ((b, t_out, h, w), f32), ((b, t_out, h, w), i32)
+    return {
+        "AirWithFixedSatDataset": station_in + [
+            ((b, stn, t_out), f32), ((b, stn, 13), f32)] + targets + [
+            times, prev_stn],
+        "AirWithSimulationDataset": station_in + [sim_stn] + targets + [
+            times, prev_stn],
+        "AirOnlyDataset": station_in + targets + [times, prev_stn],
+        "AirWithSimulationDatasetV2": station_in + [
+            sim_stn, ((b, korea, t_out * 6 + 4), f32)] + targets + [
+            times, prev_stn],
+        "AirSimulationReanalysisDataset": station_in + [
+            sim_stn, re, cls, times, prev_stn],
+        "AirSimulationReanalysisDatasetWithCurr": station_in + [
+            sim_stn, ((b, h, w), f32), re, cls, times, prev_stn],
+        "AirSimulationReanalysisDatasetV2": station_in + [
+            ((b, h, w, t_out * 28), f32), re, cls, times, prev_stn],
+        "AirSimulationReanalysisDatasetWithStationImgs": [
+            ((b, h, w, (t_in + t_out) * 28), f32), ((b, h, w), f32), re, cls,
+            times, ((b, prev, h, w), f32), ((b, t_in, 2, h, w), f32),
+            ((b, t_out, 2, h, w), f32)],
+    }[name]
+
+
+def datasets_on_the_tree(paths, card: str):
+    """Phase 17a: one ``BatchLoader`` batch of 25 from each of the eight
+    datasets, in its tuple's shapes and dtypes; the two lazy classes once
+    with the native plane and once without, byte-equal; no file the native
+    reader had to zero-fill.  Returns {class: samples/s}."""
+    from vit_grid_model_tpu_torch.data import datasets, native, readers
+    from vit_grid_model_tpu_torch.data.pipeline import BatchLoader
+    from vit_grid_model_tpu_torch.data.synthetic import (DEFAULT_FEAT_INFOS,
+                                                         write_station_images)
+
+    times = dataset_times()
+    t0 = time.perf_counter()
+    write_station_images(paths["data_path"], times,
+                         output_dim=DATASET_DIMS["output_dim"])
+    print(f"station images for {len(times)} hours: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a = dataset_arrays(len(times))
+    fm = (a["feats"], a["masks"])
+    lazy = dict(cmaq_size=LEGACY_GRID, sim_data_path=paths["sim_data_path"],
+                reanalysis_data_path=paths["analysis_data_path"],
+                feat_infos=DEFAULT_FEAT_INFOS, **DATASET_DIMS)
+    built = {
+        "AirWithFixedSatDataset": lambda c: c(
+            times, a["sat_outputs"], a["sat_inputs"], *fm, **DATASET_DIMS),
+        "AirWithSimulationDataset": lambda c: c(
+            times, *fm, a["simulation"], **DATASET_DIMS),
+        "AirOnlyDataset": lambda c: c(times, *fm, **DATASET_DIMS),
+        "AirWithSimulationDatasetV2": lambda c: c(
+            times, *fm, a["simulation"], a["simulation_pm"], **DATASET_DIMS),
+        "AirSimulationReanalysisDataset": lambda c: c(
+            times, *fm, a["simulation"], a["reanalysis"], **DATASET_DIMS),
+        "AirSimulationReanalysisDatasetWithCurr": lambda c: c(
+            times, *fm, a["simulation"], a["reanalysis"], **DATASET_DIMS),
+        "AirSimulationReanalysisDatasetV2": lambda c: c(times, *fm, **lazy),
+        "AirSimulationReanalysisDatasetWithStationImgs": lambda c: c(
+            times, *fm, data_path=paths["data_path"], **lazy),
+    }
+
+    def one_batch(name, use_native=None):
+        ds = built[name](getattr(datasets, name))
+        if use_native is not None:
+            ds.use_native = use_native
+        if len(ds) != DATASET_BATCH:
+            raise AssertionError(f"{name}: {len(ds)} samples")
+        readers.clear_caches()
+        t = time.perf_counter()
+        batches = list(BatchLoader(ds, batch_size=DATASET_BATCH))
+        seconds = time.perf_counter() - t
+        if len(batches) != 1:
+            raise AssertionError(f"{name}: {len(batches)} batches")
+        batch = batches[0]
+        got = [(tuple(f.shape), f.dtype) for f in batch]
+        want = [(s, np.dtype(d)) for s, d in dataset_shapes(name)]
+        if got != want:
+            raise AssertionError(f"{name}: batch fields {got}, expected "
+                                 f"{want}")
+        if not all(np.isfinite(f).all() for f in batch
+                   if f.dtype == np.float32):
+            raise AssertionError(f"{name}: a field is not finite")
+        return batch, DATASET_BATCH / seconds
+
+    native.reset_unsupported_count()
+    rates = {}
+    for name in IN_MEMORY_DATASETS + LAZY_DATASETS:
+        batch, rates[name] = one_batch(name)
+        line = (f"{name}: a batch of {DATASET_BATCH}, {len(batch)} fields, "
+                f"{rates[name]:.1f} samples/s")
+        if name in LAZY_DATASETS:
+            slow, rates[name + " numpy"] = one_batch(name, use_native=False)
+            if not all(x.dtype == y.dtype and np.array_equal(x, y)
+                       for x, y in zip(batch, slow)):
+                raise AssertionError(f"{name}: the native plane's batch is "
+                                     "not the numpy path's")
+            line += (f" (native plane); without it "
+                     f"{rates[name + ' numpy']:.1f} samples/s, the batch "
+                     "byte-equal")
+        print(f"{line}; card: {card}", flush=True)
+    if native.unsupported_count() != 0:
+        raise AssertionError(f"{native.unsupported_count()} files the "
+                             "native reader zero-filled")
+    print("native.unsupported_count() = 0", flush=True)
+    return rates
+
+
+def station_image_config(**over):
+    """The shipped 12-hour model with the station-image channel: 25
+    channels, hidden 128, 32 heads x 32."""
+    import dataclasses
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
+
+    mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
+    return dataclasses.replace(
+        shipped_12hr_model_config(pm25_mean=mean, pm25_std=std),
+        n_variables=STN_IMG_CHANNEL + 1, stn_img_channel=STN_IMG_CHANNEL,
+        **over)
+
+
+def station_image_inputs(batch: int, seed: int):
+    """(x (B, 25, 25, 82, 67), timestamps (B, 25, 4)) from a numpy seed,
+    as phase 3 draws the 24-channel model's."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((batch, 25, STN_IMG_CHANNEL + 1) + LEGACY_GRID)
+         * 50).astype(np.float32)
+    ts = np.stack([np.full((batch, 25), 2023.0), np.ones((batch, 25)),
+                   np.full((batch, 25), 15.0),
+                   np.tile(np.arange(25) % 24, (batch, 1))],
+                  axis=-1).astype(np.float32)
+    return x, ts
+
+
+def k1_counts(what: str, want: str, layers: int):
+    """Raises unless the forward just run launched K1 2 x ``layers`` times,
+    each on the ``want`` design; notes them under ``what``."""
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    note_k1_designs(what)
+    got = (cuda_attn.launches, dict(cuda_attn.fwd_route_launches))
+    if got != (2 * layers, {want: 2 * layers}):
+        raise AssertionError(f"{what}: K1 launches by design {got}, "
+                             f"expected {2 * layers} on the {want} design")
+    return cuda_attn.launches
+
+
+def station_image_model(dev, card: str):
+    """Phase 17b and 17c: the station-image 12-hour model, one sample in
+    f32 on the card against the CPU (K1's first design), then the --fast
+    configuration (bf16, fused stem, NHWC input staged by
+    ``model_input_to_nhwc``) at B = 25 against the standard path of the
+    same configuration on the (B, T, C, H, W) input (K1's strip path).  Returns (f32 error, fast
+    error, fast forward ms, K1 launches of the two forwards)."""
+    import dataclasses
+
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.data.assembly import (host_stage_dtype,
+                                                        model_input_to_nhwc)
+    from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+
+    phase("17b", "the station-image 12-hour model in f32, GPU vs CPU")
+    t = time.perf_counter()
+    cfg = station_image_config()
+    layers = sum(cfg.depth_tuple)
+    x, ts = station_image_inputs(1, SEED + 17)
+    xt, tst = torch.from_numpy(x), torch.from_numpy(ts)
+    with torch.inference_mode():
+        cpu_out = seeded_model(cfg, SEED)(xt, tst)
+        gpu_model = seeded_model(cfg, SEED).to(dev)
+        cuda_attn.reset_launches()
+        gpu_out = gpu_model(xt.to(dev), tst.to(dev))
+        torch.cuda.synchronize()
+        f32_launches = k1_counts("station-image f32 forward", "first", layers)
+    gpu_out = gpu_out.cpu()
+    scale = cpu_out.abs().max().item()
+    f32_err = (gpu_out - cpu_out).abs().max().item() / scale
+    print(f"station-image MetNet3 12hr f32 (25 channels, station image at "
+          f"{STN_IMG_CHANNEL}), 1 sample: max|gpu - cpu| / max|cpu| = "
+          f"{f32_err:.3e} (tol {STN_IMG_F32_REL:g}); max|out| {scale:.3f}; "
+          f"K1 launches {f32_launches}, all on the first design; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if not (tuple(gpu_out.shape) == (1, 12) + LEGACY_GRID
+            and torch.isfinite(gpu_out).all().item()
+            and f32_err <= STN_IMG_F32_REL):
+        raise AssertionError(f"station-image f32 forward: error {f32_err}")
+
+    phase("17c", "the station-image model in the --fast configuration")
+    t = time.perf_counter()
+    fast_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                   fuse_lead_stem=True, nhwc_input=True)
+    # the standard path: the same configuration on the (B, T, C, H, W)
+    # input, as tests/test_nhwc_input.py holds JAX's NHWC path to
+    std_cfg = dataclasses.replace(fast_cfg, nhwc_input=False)
+    x, ts = station_image_inputs(FLAGSHIP_BATCH, SEED + 18)
+    t_stage = time.perf_counter()
+    staged = host_stage_dtype(model_input_to_nhwc(x, fast_cfg.pad_multiple),
+                              fast_cfg.compute_dtype)
+    stage_s = time.perf_counter() - t_stage
+    tst = torch.from_numpy(ts).to(dev)
+    with torch.inference_mode():
+        fast = seeded_model(fast_cfg, SEED).to(dev, torch.bfloat16)
+        xn = staged.to(dev)
+        cuda_attn.reset_launches()
+        out = fast(xn, tst)
+        torch.cuda.synchronize()
+        fast_launches = k1_counts("station-image --fast forward", "strip",
+                                  layers)
+        standard = seeded_model(std_cfg, SEED).to(dev, torch.bfloat16)
+        ref = standard(torch.from_numpy(x).to(dev, torch.bfloat16), tst)
+        ms = median_ms(lambda: fast(xn, tst))
+    out, ref = out.float().cpu(), ref.float().cpu()
+    scale = ref.abs().max().item()
+    fast_err = (out - ref).abs().max().item() / scale
+    print(f"station-image --fast (bf16, fused stem, NHWC input) at B = "
+          f"{FLAGSHIP_BATCH}: max|nhwc - standard bf16| / max = "
+          f"{fast_err:.3e} (tol {STN_IMG_FAST_REL:g}); K1 launches "
+          f"{fast_launches} a forward, all on the strip path; staging "
+          f"({tuple(staged.shape)}, model_input_to_nhwc + host bf16 cast) "
+          f"{stage_s * 1e3:.1f} ms on the host; forward {ms:.3f} ms (median "
+          f"of {LEGACY_ITERS} after {LEGACY_WARMUP}, CUDA events); "
+          f"{time.perf_counter() - t:.1f} s; card: {card}", flush=True)
+    if not (tuple(out.shape) == (FLAGSHIP_BATCH, 12) + LEGACY_GRID
+            and torch.isfinite(out).all().item()
+            and fast_err <= STN_IMG_FAST_REL):
+        raise AssertionError(f"station-image --fast forward: error "
+                             f"{fast_err}")
+    return f32_err, fast_err, ms, (f32_launches, fast_launches)
+
+
+def station_image_path(paths, dev, card: str):
+    """Phase 17: 17a the eight datasets, 17b-17c the station-image model.
+    Returns the model's K1 launches (f32, --fast)."""
+    phase("17a", "the eight legacy datasets on phase 4's tree")
+    t = time.perf_counter()
+    rates = datasets_on_the_tree(paths, card)
+    print(f"phase 17a: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    f32_err, fast_err, ms, launches = station_image_model(dev, card)
+    print(f"phase 17b-c: {time.perf_counter() - t:.1f} s", flush=True)
+    print(json.dumps({"phase17": {
+        "card": card, "samples_per_s": rates,
+        "station_image_f32_rel_err": f32_err,
+        "station_image_fast_rel_err": fast_err,
+        "station_image_fast_forward_ms": ms,
+        "k1_launches": {"f32": launches[0], "fast": launches[1]}}}),
+        flush=True)
+    return launches
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection) at the bf16
@@ -3209,6 +3584,10 @@ def run(root: str) -> int:
     legacy_path(dev, card, root)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
+    t17 = time.perf_counter()
+    stn_img_launches = station_image_path(tree, dev, card)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
         "bfloat16"]
@@ -3225,14 +3604,29 @@ def run(root: str) -> int:
     mb_bound = repro.bound_ms(384, repro.H, repro.W, repro.DIM,
                               repro.DIM * repro.EXPANSION, repro.DIM,
                               torch.bfloat16)
-    print(f"window_attention_fwd launches by path: evaluation "
-          f"{eval_launches}, training {train_counts['window_attention_fwd']}"
-          f", serving {serving_launches}, generation {gen_launches}, "
-          f"station evaluation {station_launches}; data parallel, rank 0 of "
-          f"2: evaluation {dp_eval_launches}, train step "
-          f"{dp_train_counts[0]} (window_attention_bwd "
-          f"{dp_train_counts[1]}); class-head step {class_counts}; int8 "
-          f"forward {int8_launches[0]} (int8 convs {int8_launches[1]})",
+    # K1's launches on every path that runs it, for the kernel report
+    fwd_by_path = {
+        "evaluation": eval_launches,
+        "training": train_counts["window_attention_fwd"],
+        "serving": serving_launches, "generation": gen_launches,
+        "station evaluation": station_launches,
+        "data parallel evaluation, rank 0": dp_eval_launches,
+        "data parallel train step, rank 0": dp_train_counts[0],
+        "class-head step": class_counts["window_attention_fwd"],
+        "int8 forward": int8_launches[0],
+        "station-image f32 forward": stn_img_launches[0],
+        "station-image --fast forward": stn_img_launches[1]}
+    # each path's count split by the design its launches took
+    for path, n in fwd_by_path.items():
+        if sum(K1_DESIGNS_BY_PATH[path].values()) != n:
+            raise AssertionError(f"{path}: K1 launches by design "
+                                 f"{K1_DESIGNS_BY_PATH[path]}, counted {n}")
+    fwd_by_path = {path: K1_DESIGNS_BY_PATH[path] for path in fwd_by_path}
+    print("window_attention_fwd launches by path and design: "
+          + ", ".join(f"{k} {v}" for k, v in fwd_by_path.items())
+          + f"; window_attention_bwd in the data-parallel train step "
+          f"{dp_train_counts[1]}; class-head step {class_counts}; int8 convs "
+          f"{int8_launches[1]}",
           flush=True)
     train_bound = attention_bound_ms(TRAIN_WINDOWS, 53, 128, 32, 32, 2)
     print(f"window_attention_fwd, bf16: Bw 9,000 {k_ms:.3f} ms (bound "
@@ -3372,12 +3766,16 @@ def run(root: str) -> int:
                "staged_attention_core": "ring"}
     designs.update({k[0]: "strip" for k in kernels
                     if k[0].startswith(("outproj_", "headpack_"))})
+    # launches on the paths besides the main one, where a kernel has them,
+    # by the design each launch took
+    by_path = {"window_attention_fwd": fwd_by_path}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
          "bound_by": bound[1], "library_ms": library,
-         "design": designs.get(name, "only")}
+         "design": designs.get(name, "only"),
+         **({"launches_by_path": by_path[name]} if name in by_path else {})}
         for name, source, replaces, launches, e, ms, plain_ms, bound, library
         in kernels]}))
     print(json.dumps({"ok": True, "device": {

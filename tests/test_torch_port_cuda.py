@@ -1345,3 +1345,27 @@ def test_int8_conv_matches_plain(n, c, h, w, o):
     plain = Q.int8_conv_accumulate_plain(xq, q.wq)
     assert acc.dtype == torch.int32 and torch.equal(acc, plain)
     assert torch.equal(Q.conv2d_int8(q, x), Q.dequantize(plain, q, x.dtype))
+
+
+def test_k1_route_is_named_by_the_kernels_export():
+    """``fwd_route`` asks K1's own route export: the strip path in bf16 at
+    dim and dim_head multiples of 16, dim <= 128, dim_head <= 32, the first
+    design elsewhere; each launch counts under the design it took."""
+    _need_cuda()
+    bf, f32 = torch.bfloat16, torch.float32
+    for dim, dh, dtype, want in (
+            (128, 32, bf, "strip"), (48, 16, bf, "strip"),
+            (128, 32, f32, "first"), (128, 64, bf, "first"),
+            (256, 32, bf, "first"), (40, 8, bf, "first")):
+        assert cuda_attn.fwd_route(dim, dh, dtype) == want
+    dev = torch.device("cuda")
+    m, x, cond = attention_case(3, 16, 48, True, 60, 0.0, seed=1)
+    bias_idx = relative_position_indices(7, 4, device=dev)
+    for dtype, want in ((bf, "strip"), (f32, "first")):
+        cuda_attn.reset_launches()
+        with torch.inference_mode():
+            cuda_attn.window_attention(
+                m.to(dev, dtype), torch.from_numpy(x).to(dev, dtype),
+                torch.from_numpy(cond).to(dev, dtype), bias_idx,
+                windows_per_sample=30)
+        assert dict(cuda_attn.fwd_route_launches) == {want: 1}

@@ -1,10 +1,13 @@
 """The port's own host code against the JAX package's originals: configs,
 the eval, generation and station CLIs' parsers, the state-dict exporters
 (MetNet3's, the legacy station and grid models' and SimVP's),
-the synthetic tree (also with its station keywords), the datasets (the
-station one too) and ``BatchLoader``, ``device_prefetch``, the assembly
-(with the host bf16 cast and the masked classes), ``pad_to_multiple``, the
-native loader and the metric engine with its log writer.  Exact (bit- or
+the synthetic tree (also with its station keywords), the CLIs' three
+datasets (the station one too) and ``BatchLoader``, ``device_prefetch``,
+the assembly (with the host bf16 cast and the masked classes),
+``pad_to_multiple``, the native loader and the metric engine with its log
+writer.  The other eight datasets, their host helpers, the native
+bindings, the fault hook and ``model_input_to_nhwc`` are held in
+``tests/test_torch_port_datasets.py``.  Exact (bit- or
 byte-equal) unless stated; the native loader is held to the numpy path at
 rtol 1e-6, as ``tests/test_native_loader.py`` holds the JAX package's."""
 

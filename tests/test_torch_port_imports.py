@@ -2,13 +2,15 @@
 ``vit_grid_model_tpu_torch`` (among them the inference entry points:
 serving, generation and station evaluation with their CLIs, the int8
 convs of ``ops/quantize.py``, the class heads, the legacy station and grid
-models, SimVP with its conv blocks, and the utilities) and
-``chip_smoke.py`` in a fresh interpreter
+models, SimVP with its conv blocks, the utilities, and the eleven datasets
+with their host helpers) and ``chip_smoke.py`` in a fresh interpreter
 loads no ``jax``, no Triton, nothing of the JAX package
 (``vit_grid_model_tpu``) and nothing of ``benchmarks``, and builds no
-kernel."""
+kernel.  Their sources hold no import of ``jax`` or of the JAX package
+either, not even inside a function, where importing a module runs none."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -38,15 +40,35 @@ bad = [m for m in sys.modules
                               'benchmarks')]
 assert not bad, bad
 assert library._lib is None
-from vit_grid_model_tpu_torch.data.assembly import (assign_class_masked,
-                                                    host_stage_dtype)
+from vit_grid_model_tpu_torch.data.assembly import (
+    assemble_output_only_simulation, assign_class_masked, host_stage_dtype,
+    model_input_to_nhwc)
 from vit_grid_model_tpu_torch.data.datasets import (
-    Air_Simulation_Reanalysis_Dataset_by_stn)
+    Air_Simulation_Reanalysis_Dataset,
+    Air_Simulation_Reanalysis_Dataset_by_stn,
+    Air_Simulation_Reanalysis_Dataset_only,
+    Air_Simulation_Reanalysis_Dataset_v2,
+    Air_Simulation_Reanalysis_Dataset_v3,
+    Air_Simulation_Reanalysis_Dataset_w_curr,
+    Air_Simulation_Reanalysis_Dataset_with_station_imgs, Air_only_Dataset,
+    Air_with_Simulation_Dataset, Air_with_Simulation_Dataset_v2,
+    Air_with_fixed_Sat_Dataset, AirOnlyDataset,
+    AirSimulationReanalysisDataset, AirSimulationReanalysisDatasetV2,
+    AirSimulationReanalysisDatasetWithCurr,
+    AirSimulationReanalysisDatasetWithStationImgs, AirWithFixedSatDataset,
+    AirWithSimulationDataset, AirWithSimulationDatasetV2)
+from vit_grid_model_tpu_torch.data.native import (load_cycle_files_native,
+                                                  reset_unsupported_count,
+                                                  unsupported_count)
+from vit_grid_model_tpu_torch.data.readers import set_fault_injection
+from vit_grid_model_tpu_torch.data.synthetic import write_station_images
+from vit_grid_model_tpu_torch.data.timeutil import raw_time_rows
 from vit_grid_model_tpu_torch.data.pipeline import device_prefetch
 from vit_grid_model_tpu_torch.evaluation.serving import Forecaster
 from vit_grid_model_tpu_torch.parallel.mesh import pad_to_multiple
 assert attention.launches == attention.bwd_launches == mbconv.launches == 0
 assert attention.wgrad_launches == 0
+assert sum(attention.fwd_route_launches.values()) == 0
 assert quantize.launches == 0
 assert attention_variants.layer_launches == 0
 assert (attention_variants.headmajor_launches
@@ -69,3 +91,42 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _CODE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+# an import statement of jax, jaxlib or the JAX package (not of the port,
+# whose name only begins with the JAX package's), at any indentation
+_JAX_IMPORT = re.compile(
+    r"^[ \t]*(?:from[ \t]+(?:jax|jaxlib|vit_grid_model_tpu)\b"
+    r"|import[ \t]+(?:[\w.]+(?:[ \t]+as[ \t]+\w+)?[ \t]*,[ \t]*)*"
+    r"(?:jax|jaxlib|vit_grid_model_tpu)\b)", re.M)
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "vit_grid_model_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return paths
+
+
+def test_port_sources_import_no_jax():
+    """Every import statement of the port's sources and ``chip_smoke.py``,
+    top-level or inside a function, names neither ``jax`` nor the JAX
+    package."""
+    paths = _sources()
+    assert len(paths) >= 80, paths
+    hits = []
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        hits += [f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}"
+                 for m in _JAX_IMPORT.finditer(text)]
+    assert not hits, hits
+    for line in ("    from vit_grid_model_tpu.data import native",
+                 "import jax.numpy as jnp", "from jax import lax",
+                 "import numpy as np, jax", "\tfrom jaxlib import xla_client"):
+        assert _JAX_IMPORT.search(line), line
+    for line in ("from vit_grid_model_tpu_torch.data import native",
+                 "import vit_grid_model_tpu_torch", "import jaxtyping",
+                 "# the JAX package (vit_grid_model_tpu) is not imported"):
+        assert not _JAX_IMPORT.search(line), line

@@ -175,6 +175,18 @@ int launch_strips(const void* x, const void* gamma, const void* beta,
 
 }  // namespace
 
+// The design a launch takes: the strip path (1) for bf16 at dim and dh
+// multiples of 16, dim <= kMaxStripDim and dh <= kMaxStripDimHead, else
+// the first design (0).
+static bool strip_route(int is_bf16, int dim, int dh) {
+  return is_bf16 && dim % 16 == 0 && dh % 16 == 0 && dim <= kMaxStripDim &&
+         dh <= kMaxStripDimHead;
+}
+
+extern "C" int vgm_window_attention_fwd_route(int is_bf16, int dim, int dh) {
+  return strip_route(is_bf16, dim, dh) ? 1 : 0;
+}
+
 // x, out: (bw, n, dim) in f32 or bf16 (is_bf16); gamma, beta: f32
 // (bw / windows_per_sample, dim), read only when has_film; wqkv: (heads,
 // dim, 3*dh) and wout: (heads, dh, dim) in x's type; q_gamma, k_gamma:
@@ -193,8 +205,7 @@ extern "C" int vgm_window_attention_fwd(
   if (n < 1 || n > kRows || dim < 1 || dim > kMaxDim || dh < 1 ||
       dh > kMaxDimHead)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16 && dim % 16 == 0 && dh % 16 == 0 && dim <= kMaxStripDim &&
-      dh <= kMaxStripDimHead)
+  if (strip_route(is_bf16, dim, dh))
     return launch_strips(x, gamma, beta, wqkv, q_gamma, k_gamma, wout, bias,
                          out, bw, n, dim, heads, dh, windows_per_sample,
                          has_film, sd, thr, keep_scale, st);

@@ -1,7 +1,7 @@
 """CMAQ sample assembly: the numpy core of the port's datasets.
 
-The port's own copy of ``vit_grid_model_tpu/data/assembly.py`` (the parts
-the port calls).  It reproduces the reference's per-sample tensor contract
+The port's own copy of ``vit_grid_model_tpu/data/assembly.py``.  It
+reproduces the reference's per-sample tensor contract
 (``dataset.py:1102-1416``):
 
 * per timestep, a 28-channel block: 6 species x 4 init cycles (03/09/15/21
@@ -99,6 +99,25 @@ def assemble_simulation(times: Sequence[datetime], mod_idx: int, idx: int, *,
     return sim, prev_pm25
 
 
+def assemble_output_only_simulation(times: Sequence[datetime], mod_idx: int, *,
+                                    input_dim: int, output_dim: int,
+                                    sim_data_path: str,
+                                    feat_infos: Dict[str, Tuple[float, float]],
+                                    n_species: int,
+                                    grid_shape: Tuple[int, int]) -> np.ndarray:
+    """The v2 dataset's output-window-only stack ``(H, W, output*(4S+4))``
+    (``dataset.py:548-656``)."""
+    h, w = grid_shape
+    s = n_species
+    bc = 4 * s + 4
+    sim = np.zeros((h, w, output_dim * bc), dtype=np.float32)
+    for t_idx in range(output_dim):
+        t = times[mod_idx + t_idx + 1]
+        block, _, _ = cycle_block(t, sim_data_path, feat_infos, s, grid_shape)
+        sim[:, :, t_idx * bc:(t_idx + 1) * bc] = block
+    return sim
+
+
 def read_reanalysis_window(times: Sequence[datetime], mod_idx: int, *,
                            output_dim: int, reanalysis_data_path: str,
                            grid_shape: Tuple[int, int]
@@ -156,6 +175,31 @@ def sim_stack_to_nhwc_input(simulation: np.ndarray, total_steps: int,
     return out
 
 
+def model_input_to_nhwc(x: np.ndarray, pad_multiple: int = 14
+                        ) -> np.ndarray:
+    """(B, T, C, H, W) model input -> the model's ``nhwc_input`` layout
+    (B, Hp, Wp, T*C) in f32, zero-padded centered like
+    ``sim_stack_to_nhwc_input`` (the split of ``models.metnet3.pad_values``),
+    from the pool.
+
+    Generic over C, so it stages the station-image variant's 25-channel
+    input (station-image channel 24, ``metnet3.py:701``), which
+    ``sim_stack_to_nhwc_input``, staging straight from the channels-last
+    CMAQ stack, cannot carry.  It pays a host transpose, since the source
+    is channel-major.  For bf16, pass its f32 output to
+    ``host_stage_dtype``."""
+    b, t, c, h, w = x.shape
+    pad_h = (pad_multiple - h) % pad_multiple
+    pad_w = (pad_multiple - w) % pad_multiple
+    left, top = pad_w // 2, pad_h // 2
+    hp, wp = h + pad_h, w + pad_w
+    out = POOL.get((b, hp, wp, t * c), np.float32)
+    out[:] = 0
+    out[:, top:top + h, left:left + w] = (
+        x.reshape(b, t * c, h, w).transpose(0, 2, 3, 1))
+    return out
+
+
 def host_stage_dtype(x: np.ndarray, compute_dtype: str):
     """A model input in the compute dtype on the HOST when that is bf16:
     a torch bf16 tensor from the pool (page-locked when a card is present,
@@ -177,11 +221,12 @@ RANGE_4CLASS = ((-1.0, 15.0), (15.0, 35.0), (35.0, 75.0), (75.0, np.inf))
 CLASS_FOUR = (0, 1, 2, 3)
 
 
-def assign_class(arr: np.ndarray) -> np.ndarray:
-    """PM2.5 -> {0,1,2,3} class by the (15, 35, 75] thresholds; -1 for
-    out-of-range (NaN) (``dataset.py:8-9``)."""
+def assign_class(arr: np.ndarray, default: int = -1) -> np.ndarray:
+    """PM2.5 -> {0,1,2,3} class by the (15, 35, 75] thresholds.  The dataset
+    default for out-of-range (NaN) is -1 (``dataset.py:8-9``); the eval
+    CLI's local copy defaults to 0 (``evaluation_vit.py:31-32``)."""
     conds = [np.logical_and(arr > lo, arr <= hi) for lo, hi in RANGE_4CLASS]
-    return np.select(conds, CLASS_FOUR, default=-1)
+    return np.select(conds, CLASS_FOUR, default=default)
 
 
 def assign_class_masked(arr: np.ndarray, mask: np.ndarray) -> np.ndarray:

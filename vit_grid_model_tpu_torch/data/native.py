@@ -1,9 +1,9 @@
 """ctypes bindings for the native (C++) CMAQ data plane.
 
-The port's own copy of ``vit_grid_model_tpu/data/native.py`` (the parts the
-port calls).  ``csrc/cmaq_loader.cc`` fuses the per-sample ``.npy`` reads,
-per-species standardization and channel interleave into one GIL-free
-threaded pass.  The library is compiled at first use with ``g++`` into
+The port's own copy of ``vit_grid_model_tpu/data/native.py``.
+``csrc/cmaq_loader.cc`` fuses the per-sample ``.npy`` reads, per-species
+standardization and channel interleave into one GIL-free threaded pass.
+The library is compiled at first use with ``g++`` into
 ``build/native/libcmaq_loader.so`` at the root of the checkout.  When it
 cannot be built or loaded, every caller takes the numpy path in
 ``data/assembly.py``, whose outputs are byte-identical
@@ -66,6 +66,15 @@ def _open() -> ctypes.CDLL:
     lib.vg_assemble_batch.restype = ctypes.c_int64
     lib.vg_repack_model_input.restype = None
     lib.vg_repack_nhwc.restype = None
+    i64 = ctypes.c_int64
+    lib.vg_load_cycle_files.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), i64, i64, i64, i64,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+    lib.vg_load_cycle_files.restype = i64
+    lib.vg_unsupported_count.argtypes = []
+    lib.vg_unsupported_count.restype = i64
+    lib.vg_reset_unsupported_count.argtypes = []
+    lib.vg_reset_unsupported_count.restype = None
     return lib
 
 
@@ -89,6 +98,20 @@ def _load_library() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load_library() is not None
+
+
+def unsupported_count() -> int:
+    """Loud load failures so far: files ``np.load`` would have accepted but
+    the native reader zero-filled (each also named on stderr).  0 after a
+    clean run; 0 when the library is unavailable."""
+    lib = _load_library()
+    return int(lib.vg_unsupported_count()) if lib is not None else 0
+
+
+def reset_unsupported_count() -> None:
+    lib = _load_library()
+    if lib is not None:
+        lib.vg_reset_unsupported_count()
 
 
 def _c_paths(paths: Sequence[str]):
@@ -238,3 +261,18 @@ def repack_nhwc_native(simulation: np.ndarray, total_steps: int,
         ctypes.c_void_p(out.ctypes.data), ctypes.c_int(0),
         ctypes.c_int(THREADS))
     return True
+
+
+def load_cycle_files_native(paths: Sequence[str], n_species: int,
+                            grid_shape: Tuple[int, int]
+                            ) -> Optional[np.ndarray]:
+    """Raw cycle files -> (N, S, H, W) f32, a file that fails to load
+    zero-filled; None when the native library is unavailable."""
+    lib = _load_library()
+    if lib is None:
+        return None
+    h, w = grid_shape
+    out = np.zeros((len(paths), n_species, h, w), np.float32)
+    lib.vg_load_cycle_files(_c_paths(paths), len(paths), n_species, h, w,
+                            _f32p(out), THREADS)
+    return out

@@ -1,11 +1,12 @@
 """Host-side file readers with the reference's fault semantics and an LRU
 cache.
 
-The port's own copy of ``vit_grid_model_tpu/data/readers.py`` (the parts
-the port calls).  A missing or malformed CMAQ ``.npy`` becomes a zero grid
-(``dataset.py:784-789``).  Consecutive samples share almost all of their
-files, so a process-level LRU keyed by path keeps repeated reads off the
-filesystem.  Reads happen on host threads.
+The port's own copy of ``vit_grid_model_tpu/data/readers.py``.  A missing
+or malformed CMAQ ``.npy`` becomes a zero grid (``dataset.py:784-789``),
+and a hook can drop chosen files deterministically, for tests.
+Consecutive samples share almost all of their files, so a process-level
+LRU keyed by path keeps repeated reads off the filesystem.  Reads happen
+on host threads.
 """
 
 from __future__ import annotations
@@ -14,11 +15,22 @@ import os
 import threading
 from collections import OrderedDict
 from datetime import datetime
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from vit_grid_model_tpu_torch.data.timeutil import reanalysis_file_name
+
+# deterministic fault injection for tests: path -> bool (True = drop)
+_fault_hook: Optional[Callable[[str], bool]] = None
+
+
+def set_fault_injection(hook: Optional[Callable[[str], bool]]) -> None:
+    """Drop every CMAQ file for which ``hook(path)`` is true, as if it were
+    missing (``None`` turns it off).  Only the numpy reader
+    (``load_cmaq_npy``) consults it, and only for files not yet cached."""
+    global _fault_hook
+    _fault_hook = hook
 
 
 class _LRU:
@@ -65,7 +77,7 @@ def load_cmaq_npy(path: str, n_species: int,
     if cached is not None:
         return cached
     arr = None
-    if os.path.exists(path):
+    if (_fault_hook is None or not _fault_hook(path)) and os.path.exists(path):
         try:
             arr = np.load(path)
         except (OSError, ValueError):
@@ -108,13 +120,14 @@ def read_netcdf_var(path: str, var: str) -> np.ndarray:
         return np.array(f.variables[var][:])
 
 
-def load_reanalysis_day(path: str) -> np.ndarray:
-    """One reanalysis day's PM2P5 -> (24, 1, H, W); cached."""
-    cached = _nc_cache.get(path)
+def load_reanalysis_day(path: str, var: str = "PM2P5") -> np.ndarray:
+    """One reanalysis day's ``var`` -> (24, 1, H, W) (or (24, L, H, W));
+    cached by (path, var)."""
+    cached = _nc_cache.get((path, var))
     if cached is not None:
         return cached
-    arr = np.asarray(read_netcdf_var(path, "PM2P5"), dtype=np.float32)
-    _nc_cache.put(path, arr)
+    arr = np.asarray(read_netcdf_var(path, var), dtype=np.float32)
+    _nc_cache.put((path, var), arr)
     return arr
 
 

@@ -1,7 +1,7 @@
 """Synthetic CMAQ-shaped data trees.
 
-The port's own copy of ``vit_grid_model_tpu/data/synthetic.py`` (the parts
-the port calls); for the same window it writes byte-identical files
+The port's own copy of ``vit_grid_model_tpu/data/synthetic.py``; for the
+same window it writes byte-identical files
 (``tests/test_torch_port_host.py``).  It writes a deterministic fake data
 tree with the reference's on-disk layouts, so the CLIs run end to end with
 no external data:
@@ -12,6 +12,9 @@ no external data:
 * ground obs         ``{data}/ground_obs/{Y}/{M}/{ddHH}.npy``
 * station metadata   ``{data}/station_infos/{korea,china,coords}.txt`` and
   ``GRID_INFO_09km.nc``; feature stats ``{data}/feat_infos.txt``
+* station images     ``{data}/{ground_obs_imgs,ground_obs_krig_imgs,
+  multiair_img,multiair_krig_img}/{Y}/{M}/{ddHH}_*.npy``
+  (``write_station_images``, written on request)
 
 Fields are smooth space-time random processes seeded from the file
 identity, so the same path always holds the same values and neighbouring
@@ -210,3 +213,26 @@ def generate_tree(root: str, start_kst: datetime, end_kst: datetime, *,
     write_cmaq_range(sim_path, start_utc, end_utc)
     return {"data_path": data_path, "sim_data_path": sim_path,
             "analysis_data_path": re_path}
+
+
+def write_station_images(data_path: str, times_kst: Sequence[datetime],
+                         output_dim: int = 12,
+                         grid: Tuple[int, int] = GRID) -> None:
+    """Kriged ground-obs and MultiAir prediction image trees read by
+    ``AirSimulationReanalysisDatasetWithStationImgs``
+    (``dataset.py:1591-1595,1701-1706``)."""
+    for t in times_kst:
+        y, m = t.strftime("%Y"), str(int(t.strftime("%m")))
+        dh = t.strftime("%d%H")
+        for sub, shape, suffix in (
+                ("ground_obs_imgs", grid, "_img"),
+                ("ground_obs_krig_imgs", (2,) + grid, "_krige_img"),
+                ("multiair_img", (output_dim,) + grid, "_multiair_img"),
+                ("multiair_krig_img", (output_dim, 2) + grid,
+                 "_multiair_krige_img")):
+            d = f"{data_path}/{sub}/{y}/{m}"
+            os.makedirs(d, exist_ok=True)
+            path = f"{d}/{dh}{suffix}.npy"
+            if not os.path.exists(path):
+                rng = _rng(sub, t.strftime("%Y%m%d%H"))
+                np.save(path, (rng.random(shape) * 40).astype(np.float32))

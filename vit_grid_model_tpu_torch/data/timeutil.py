@@ -1,7 +1,6 @@
 """KST/UTC and CMAQ cycle/lead-time arithmetic as pure functions.
 
-The port's own copy of ``vit_grid_model_tpu/data/timeutil.py`` (the parts
-the port calls).
+The port's own copy of ``vit_grid_model_tpu/data/timeutil.py``.
 
 Semantics: sample times are KST; CMAQ file lookup is in UTC (``t - 9h``,
 ``dataset.py:738``).  CMAQ runs initialize daily at 03/09/15/21 UTC and a
@@ -13,7 +12,7 @@ before's otherwise.
 from __future__ import annotations
 
 from datetime import datetime, timedelta
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 KST_OFFSET_HOURS = 9
 CYCLES = (3, 9, 15, 21)
@@ -58,6 +57,17 @@ def reanalysis_file_name(reanalysis_data_path: str, t_utc: datetime) -> str:
     (``dataset.py:739``)."""
     return (f"{reanalysis_data_path}/{t_utc.year}/"
             f"ACONC.PM_RQ40i8a.KNU_09_01.{t_utc.strftime('%Y%m%d')}.nc")
+
+
+def raw_time_rows(times: Sequence[datetime], mod_idx: int, input_dim: int,
+                  total_steps: int) -> List[List[int]]:
+    """The (input_dim+output_dim, 4) [year, month, day, hour] rows a sample
+    carries (``dataset.py:730-732``)."""
+    rows = []
+    for t_idx in range(total_steps):
+        t = times[mod_idx - input_dim + 1 + t_idx]
+        rows.append([t.year, t.month, t.day, t.hour])
+    return rows
 
 
 def hourly_range(start: datetime, end: datetime) -> List[datetime]:

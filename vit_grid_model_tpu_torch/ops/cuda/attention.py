@@ -25,6 +25,7 @@ The kernels live in the library that ``ops/cuda/library.py`` builds from
 from __future__ import annotations
 
 from collections import Counter
+from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -55,6 +56,10 @@ mask_launches = 0     # the standalone keep-mask kernel
 # route
 mask_route_launches: Counter = Counter()
 MASK_ROUTES = ("chunks",)
+# K1's launches by the design they took, as FWD_ROUTES names the kernel's
+# route (``fwd_route``)
+fwd_route_launches: Counter = Counter()
+FWD_ROUTES = ("first", "strip")
 
 
 def reset_launches() -> None:
@@ -63,6 +68,7 @@ def reset_launches() -> None:
     launches = bwd_launches = wgrad_launches = hash_launches = 0
     mask_launches = 0
     mask_route_launches.clear()
+    fwd_route_launches.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +132,15 @@ def kernel_inputs(p: Attention, x: Tensor, cond: Optional[Tensor],
 # ---------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=None)
+def fwd_route(dim: int, dh: int, dtype: torch.dtype) -> str:
+    """The design K1 takes at these widths, as the kernel names it:
+    "strip" (bf16 at the strip path's widths) or "first".  Asked once per
+    (dim, dh, dtype): a launch pays a lookup, not a foreign call."""
+    return FWD_ROUTES[library.load().vgm_window_attention_fwd_route(
+        int(dtype == torch.bfloat16), dim, dh)]
+
+
 def window_attention_fwd(x: Tensor, k: KernelInputs, seed: int,
                          rate: float) -> Tensor:
     """K1 on its own inputs: (Bw, n, dim) in x's dtype."""
@@ -144,6 +159,7 @@ def window_attention_fwd(x: Tensor, k: KernelInputs, seed: int,
     global launches, hash_launches
     launches += 1
     hash_launches += int(threshold != 0)
+    fwd_route_launches[fwd_route(dim, three_dh // 3, x.dtype)] += 1
     return out
 
 

@@ -170,9 +170,11 @@ def load() -> ctypes.CDLL:
         lib.vgm_staged_attention_core_route.argtypes = [i32] * 3
         lib.vgm_staged_attention_core_occupancy.argtypes = [i32, ptr]
         lib.vgm_dropout_keep_mask_route.argtypes = []
+        lib.vgm_window_attention_fwd_route.argtypes = [i32] * 3
         for fn in (lib.vgm_staged_attention_core_route,
                    lib.vgm_staged_attention_core_occupancy,
-                   lib.vgm_dropout_keep_mask_route):
+                   lib.vgm_dropout_keep_mask_route,
+                   lib.vgm_window_attention_fwd_route):
             fn.restype = ctypes.c_int
         lib.vgm_maxvit_layer_attention_cluster.argtypes = [i32] * 8
         lib.vgm_maxvit_layer_attention_cluster.restype = ctypes.c_int
