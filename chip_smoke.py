@@ -149,7 +149,8 @@ station-image variant of the 12-hour model.  Phases:
    v2 and v3 (v3 under Standard, RevIN and DishTS) at B = 1 over the 82 x
    67 grid, 6,044 joint-attention tokens; (c) SimVP at its spec's widths,
    B = 4, (7, 12, 80, 64); (d) a ``trace`` with an ``annotate`` region
-   writes its trace file, and ``oom_guard`` rewraps a real CUDA
+   writes its trace file, the region owns every kernel launched in it
+   (``kernels_by_span``), and ``oom_guard`` rewraps a real CUDA
    out-of-memory error.  No hand-written kernel launches in it (K1, K3,
    K3-w and the hash counters stay at 0).  Each sub-phase prints its
    seconds;
@@ -2855,7 +2856,8 @@ def simvp_path(dev, card: str):
 
 def utilities_on_the_card(model, inputs, dev, card: str, root: str):
     """Phase 16d: a ``trace`` with an ``annotate`` region around a station
-    forward writes its trace file; ``oom_guard`` rewraps a real CUDA
+    forward writes its trace file, and the region owns every kernel the
+    forward launched; ``oom_guard`` rewraps a real CUDA
     out-of-memory error, raised by asking for twice the card's memory.
     Returns the trace's count of device kernel events."""
     import glob
@@ -2863,13 +2865,18 @@ def utilities_on_the_card(model, inputs, dev, card: str, root: str):
     import torch
 
     from vit_grid_model_tpu_torch.utils.hbm import oom_guard
-    from vit_grid_model_tpu_torch.utils.profiling import annotate, trace
+    from vit_grid_model_tpu_torch.utils.profiling import (annotate,
+                                                          kernels_by_span,
+                                                          trace)
 
     log_dir = tempfile.mkdtemp(prefix="trace_", dir=root)
-    with torch.inference_mode(), trace(log_dir):
+    with torch.inference_mode(), trace(log_dir) as recorded:
         with annotate("phase16_station_forward"):
             model(**inputs)
         torch.cuda.synchronize()
+    owners = kernels_by_span(recorded)
+    if set(owners) != {"phase16_station_forward"}:
+        raise AssertionError(f"kernels owned by {sorted(owners)}")
     files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
     if len(files) != 1:
         raise AssertionError(f"trace files {files}")
@@ -2880,7 +2887,9 @@ def utilities_on_the_card(model, inputs, dev, card: str, root: str):
     kernels = sum(e.get("cat") == "kernel" for e in events)
     print(f"trace: {os.path.basename(files[0])}, "
           f"{os.path.getsize(files[0])} bytes, the annotation and "
-          f"{kernels} device kernel events", flush=True)
+          f"{kernels} device kernel events; the annotation owns "
+          f"{owners['phase16_station_forward'][1]} launches, "
+          f"{owners['phase16_station_forward'][0] * 1e3:.3f} ms", flush=True)
 
     total = torch.cuda.get_device_properties(dev).total_memory
     try:

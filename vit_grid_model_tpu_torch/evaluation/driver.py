@@ -19,6 +19,7 @@ true size, as the JAX package's ``UnshardedTail`` runs it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -44,6 +45,7 @@ from vit_grid_model_tpu_torch.evaluation.metrics import EvaluationMetrics
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.parallel.mesh import gather_rows, shard_rows
 from vit_grid_model_tpu_torch.utils.hbm import oom_guard
+from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -189,12 +191,27 @@ class BatchTiming:
     ``launch`` (queueing the forward), ``load`` (waiting for the loader's
     next batch), ``stage`` (host staging and host->device copy of the next
     batch), ``readback`` (waiting for the forward and copying the
-    predictions back) and ``metrics`` (the metric update)."""
+    predictions back) and ``metrics`` (the metric update); each phase is
+    also the span ``eval.<phase>`` (``utils/profiling.py::annotate``),
+    taken at the same marks."""
     samples: List[int] = dataclasses.field(default_factory=list)
     seconds: List[float] = dataclasses.field(default_factory=list)
     phases: Dict[str, List[float]] = dataclasses.field(
         default_factory=lambda: {k: [] for k in (
             "launch", "load", "stage", "readback", "metrics")})
+
+
+@contextlib.contextmanager
+def _phase(name: str, marks: Dict[str, Tuple[float, float]]):
+    """One phase of an eval-loop step: the span ``eval.<name>``, and the
+    host clock at its start and end, taken inside it, in ``marks[name]``,
+    which ``BatchTiming`` reads."""
+    with annotate(f"eval.{name}"):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            marks[name] = (start, time.perf_counter())
 
 
 def evaluate(model: MetNet3, data_cfg: DataConfig, *,
@@ -284,48 +301,51 @@ def evaluate(model: MetNet3, data_cfg: DataConfig, *,
             batch, x, ts, ragged = staged
             simulation, curr_re, reanalysis, re_cls = batch[:4]
             B = simulation.shape[0]
-            marks = [tb]
+            marks = {}
             with oom_guard("MetNet3 evaluation forward", batch_size, device):
                 # queued on the device; a ragged batch without the group,
                 # on rank 0 alone
-                if not ragged:
-                    preds_dev = model(x, ts, group=group)
-                elif primary:
-                    preds_dev = model(x, ts)
-                marks.append(time.perf_counter())
-                nxt = next(it, None)                 # stage k+1 meanwhile
-                marks.append(time.perf_counter())
-                staged = stage(nxt) if nxt is not None else None
-                marks.append(time.perf_counter())
-                if not ragged:
-                    preds_dev = gather_rows(preds_dev, group)
-                if primary:
-                    preds = preds_dev.cpu().numpy().reshape(B, L, cells)
+                with _phase("launch", marks):
+                    if not ragged:
+                        preds_dev = model(x, ts, group=group)
+                    elif primary:
+                        preds_dev = model(x, ts)
+                with _phase("load", marks):
+                    nxt = next(it, None)             # stage k+1 meanwhile
+                with _phase("stage", marks):
+                    staged = stage(nxt) if nxt is not None else None
+                with _phase("readback", marks):
+                    if not ragged:
+                        preds_dev = gather_rows(preds_dev, group)
+                    if primary:
+                        preds = preds_dev.cpu().numpy().reshape(B, L, cells)
             if not primary:
                 continue
-            marks.append(time.perf_counter())
-            preds = np.maximum(preds, 0.0)
-            if np.isnan(preds).any():
-                raise FloatingPointError(f"NaN in model output at batch {bi}")
+            with _phase("metrics", marks):
+                preds = np.maximum(preds, 0.0)
+                if np.isnan(preds).any():
+                    raise FloatingPointError(
+                        f"NaN in model output at batch {bi}")
 
-            persist = np.repeat(curr_re.reshape(B, 1, cells), L, axis=1)
-            sim_21h, sim_avg = extract_baselines(simulation, data_cfg, cells)
-            metrics.update(
-                model=preds, persist=persist, sim_21h=sim_21h,
-                sim_avg=sim_avg, truth=reanalysis.reshape(B, L, cells),
-                truth_cls=re_cls.reshape(B, L, cells))
-            if collect_valid_times:
-                # samples whose LAST input hour is 06, encoded YYYYMMDDHH
-                last_in = np.asarray(batch[4])[:, data_cfg.input_dim - 1]
-                sel = last_in[last_in[:, 3] == 6.0].astype(np.int64)
-                metrics.valid_times.append(
-                    sel[:, 0] * 1000000 + sel[:, 1] * 10000
-                    + sel[:, 2] * 100 + sel[:, 3])
-            marks.append(time.perf_counter())
+                persist = np.repeat(curr_re.reshape(B, 1, cells), L, axis=1)
+                sim_21h, sim_avg = extract_baselines(simulation, data_cfg,
+                                                     cells)
+                metrics.update(
+                    model=preds, persist=persist, sim_21h=sim_21h,
+                    sim_avg=sim_avg, truth=reanalysis.reshape(B, L, cells),
+                    truth_cls=re_cls.reshape(B, L, cells))
+                if collect_valid_times:
+                    # samples whose LAST input hour is 06, encoded
+                    # YYYYMMDDHH
+                    last_in = np.asarray(batch[4])[:, data_cfg.input_dim - 1]
+                    sel = last_in[last_in[:, 3] == 6.0].astype(np.int64)
+                    metrics.valid_times.append(
+                        sel[:, 0] * 1000000 + sel[:, 1] * 10000
+                        + sel[:, 2] * 100 + sel[:, 3])
             if timing is not None:
                 timing.samples.append(B)
-                timing.seconds.append(marks[-1] - tb)
-                for name, a, b in zip(timing.phases, marks, marks[1:]):
+                timing.seconds.append(marks["metrics"][1] - tb)
+                for name, (a, b) in marks.items():
                     timing.phases[name].append(b - a)
             if progress and bi % 10 == 0:
                 done = metrics.step_cnt * batch_size

@@ -19,6 +19,8 @@ statistics to ``bn_stats``; each attention call draws dropout at the
 layer's rate from its own seed (two seeds per layer: block, then grid).
 ``fold_bn_eval`` folds the MBConv batch-norms into their convs at
 inference only, as ``maxvit_apply`` does with ``spec.fold_bn_eval``.
+Each layer opens the spans ``maxvit.mbconv``, ``maxvit.block_attn`` and
+``maxvit.grid_attn`` (``utils/profiling.py::annotate``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from vit_grid_model_tpu_torch.ops import window as W
 from vit_grid_model_tpu_torch.ops.attention import Attention
 from vit_grid_model_tpu_torch.ops.cuda.attention import window_attention
 from vit_grid_model_tpu_torch.ops.mbconv import mbconv
+from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 
 def layer_dims(dim: int, depth: Tuple[int, ...]) -> List[Tuple[int, int, bool]]:
@@ -100,29 +103,33 @@ class MaxViT(nn.Module):
             block_seed = grid_seed = None
             if seeds is not None:
                 block_seed, grid_seed = seeds[2 * li], seeds[2 * li + 1]
-            x = conv(x, bn_stats, self.fold_bn_eval, group)
+            with annotate("maxvit.mbconv"):
+                x = conv(x, bn_stats, self.fold_bn_eval, group)
             if stop_after == "mbconv":
                 return x
             b, d = x.shape[0], x.shape[1]
-            x = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
 
             # block (local-window) attention
-            xw, dims = W.block_partition(x, w)
-            nwin = dims[1] * dims[2]
-            r = registers.expand(xw.shape[0], nr, d)
-            xw, r = self._attend(block_attn, xw, r, cond, nwin, block_seed)
-            x = W.block_reverse(xw, w, dims)
+            with annotate("maxvit.block_attn"):
+                x = x.permute(0, 2, 3, 1)                   # (B, H, W, C)
+                xw, dims = W.block_partition(x, w)
+                nwin = dims[1] * dims[2]
+                r = registers.expand(xw.shape[0], nr, d)
+                xw, r = self._attend(block_attn, xw, r, cond, nwin,
+                                     block_seed)
+                x = W.block_reverse(xw, w, dims)
             if stop_after == "block":
                 return x.permute(0, 3, 1, 2)
 
             # grid (strided-window) attention; registers averaged over the
             # sample's windows, then repeated sample-major
-            r = r.reshape(b, nwin, nr, d).mean(dim=1)
-            xw, dims = W.grid_partition(x, w)
-            nwin = dims[1] * dims[2]
-            r = r.repeat_interleave(nwin, dim=0)
-            xw, r = self._attend(grid_attn, xw, r, cond, nwin, grid_seed)
-            x = W.grid_reverse(xw, w, dims).permute(0, 3, 1, 2)
+            with annotate("maxvit.grid_attn"):
+                r = r.reshape(b, nwin, nr, d).mean(dim=1)
+                xw, dims = W.grid_partition(x, w)
+                nwin = dims[1] * dims[2]
+                r = r.repeat_interleave(nwin, dim=0)
+                xw, r = self._attend(grid_attn, xw, r, cond, nwin, grid_seed)
+                x = W.grid_reverse(xw, w, dims).permute(0, 3, 1, 2)
         return x
 
     def _attend(self, p: Attention, xw: Tensor, registers: Tensor,

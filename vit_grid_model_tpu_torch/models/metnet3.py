@@ -35,6 +35,12 @@ stem and the host-prepared (B, Hp, Wp, T*C) input, and ``cfg.fold_bn_eval``
 the MBConv with its batch-norms folded (inference only), as in the JAX
 package.
 
+Spans (``utils/profiling.py::annotate``): ``metnet3.forward``, or
+``metnet3.class_outputs``, holds ``metnet3.input`` (standardise, pad,
+layout, time features), ``metnet3.stem`` (the lead stem and the
+max-pool), ``metnet3.vit``, ``metnet3.up``, ``metnet3.resnet2`` and
+``metnet3.head``.
+
 Heads (state_dict keys of ``core/export.py`` unless noted):
 
 * ``classifier_pm25``, under ``cfg.pm25``: a 1x1 conv with one output, or
@@ -73,6 +79,7 @@ from vit_grid_model_tpu_torch.models.maxvit import MaxViT
 from vit_grid_model_tpu_torch.ops import nn as vnn
 from vit_grid_model_tpu_torch.ops import quantize as Q
 from vit_grid_model_tpu_torch.train import losses as L
+from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 # ---------------------------------------------------------------------------
 # conditionable resnet blocks
@@ -383,114 +390,138 @@ class MetNet3(nn.Module):
         if not (cfg.pm25 or return_features or stop_after):
             raise ValueError("MetNet3 without pm25 has no regression head: "
                              "ask for return_features or class_outputs")
-        rank = distributed.rank(group)
-        seeds = None
-        if self.training:
-            if bn_stats is None:
-                raise ValueError("a training forward needs a bn_stats list")
-            if cfg.dropout > 0.0:
-                if generator is None:
-                    raise ValueError("a training forward with dropout needs "
-                                     "a torch.Generator")
-                seeds = [rank_seed(s, rank) for s in torch.randint(
-                    0, 2 ** 31 - 1, (2 * sum(cfg.depth_tuple),),
-                    generator=generator).tolist()]
-        B = x.shape[0]
-        L = cfg.end_lead_time
-        dtype = self.up.weight.dtype
+        with annotate("metnet3.forward"):
+            out = self._features(x, timestamps, generator, bn_stats, remat,
+                                 group, stop_after, collect_amax)
+            if stop_after or return_features:
+                return out
+            with annotate("metnet3.head"):
+                head = self.classifier_pm25
+                preds = vnn.conv2d(out, head.weight, head.bias)
+                preds = preds[:, 0].reshape(
+                    x.shape[0], cfg.end_lead_time, *out.shape[-2:]).float()
+                if cfg.normalization_method == "Standard":
+                    preds = preds * cfg.pm25_std + cfg.pm25_mean
+                return preds
 
-        lead_times = torch.arange(1, L + 1, device=x.device).repeat(B)
-        cond = self.condition_lead_time(lead_times)
+    def _features(self, x: Tensor, timestamps: Tensor,
+                  generator: Optional[torch.Generator],
+                  bn_stats: Optional[List], remat: bool, group,
+                  stop_after: Optional[str],
+                  collect_amax: Optional[Dict[str, Tensor]]) -> Tensor:
+        """``forward`` up to the heads, a span a stage: the (B*L, ch, H, W)
+        features the heads read, or the partial pipeline through
+        ``stop_after``."""
+        cfg = self.cfg
+        with annotate("metnet3.input"):
+            rank = distributed.rank(group)
+            seeds = None
+            if self.training:
+                if bn_stats is None:
+                    raise ValueError("a training forward needs a bn_stats "
+                                     "list")
+                if cfg.dropout > 0.0:
+                    if generator is None:
+                        raise ValueError("a training forward with dropout "
+                                         "needs a torch.Generator")
+                    seeds = [rank_seed(s, rank) for s in torch.randint(
+                        0, 2 ** 31 - 1, (2 * sum(cfg.depth_tuple),),
+                        generator=generator).tolist()]
+            B = x.shape[0]
+            L = cfg.end_lead_time
+            dtype = self.up.weight.dtype
 
-        if cfg.nhwc_input:
-            H, Wd = cfg.input_height, cfg.input_width
-            pv = pad_values(H, Wd, cfg.pad_multiple)
-            l, r, t, b = pv
-            expect = (H + t + b, Wd + l + r, cfg.window_size * cfg.n_variables)
-            if tuple(x.shape[1:]) != expect:
-                raise ValueError(f"nhwc_input expects (B,{expect[0]},"
-                                 f"{expect[1]},{expect[2]}), got "
-                                 f"{tuple(x.shape)}")
-            x = standardize_pm_channels_nhwc(x.to(dtype), cfg, pv)
-            x = x.permute(0, 3, 1, 2)                      # channels_last NCHW
-        else:
-            _, T, C, H, Wd = x.shape
-            x = standardize_pm_channels(x, cfg).reshape(B, T * C, H, Wd)
-            x, pv = pad_hw(x, cfg.pad_multiple)
-            x = x.contiguous(memory_format=torch.channels_last)
-        hp, wp = x.shape[-2:]
+            lead_times = torch.arange(1, L + 1, device=x.device).repeat(B)
+            cond = self.condition_lead_time(lead_times)
 
-        time_feats = None
-        if cfg.concat_time_to_input:
-            # over the global batch: its rows mix across the batch
-            Bg = timestamps.shape[0]
-            if Bg != B * distributed.world_size(group):
-                raise ValueError(f"timestamps hold {Bg} rows for {B} rows "
-                                 "of x on each rank")
-            row = min(6, timestamps.shape[1] - 1)
-            ts6 = timestamps[:, row, :].repeat_interleave(L, dim=0)
-            leads = torch.arange(1, L + 1, device=x.device).repeat(Bg)
-            ts6 = torch.cat([ts6, leads[:, None].to(ts6.dtype)], dim=-1)
-            time_feats = self._condition_time(ts6, Bg * L)
-            time_feats = time_feats[rank * B * L:(rank + 1) * B * L]
+            if cfg.nhwc_input:
+                H, Wd = cfg.input_height, cfg.input_width
+                pv = pad_values(H, Wd, cfg.pad_multiple)
+                l, r, t, b = pv
+                expect = (H + t + b, Wd + l + r,
+                          cfg.window_size * cfg.n_variables)
+                if tuple(x.shape[1:]) != expect:
+                    raise ValueError(f"nhwc_input expects (B,{expect[0]},"
+                                     f"{expect[1]},{expect[2]}), got "
+                                     f"{tuple(x.shape)}")
+                x = standardize_pm_channels_nhwc(x.to(dtype), cfg, pv)
+                x = x.permute(0, 3, 1, 2)                  # channels_last NCHW
+            else:
+                _, T, C, H, Wd = x.shape
+                x = standardize_pm_channels(x, cfg).reshape(B, T * C, H, Wd)
+                x, pv = pad_hw(x, cfg.pad_multiple)
+                x = x.contiguous(memory_format=torch.channels_last)
+            hp, wp = x.shape[-2:]
 
-        x = x.to(dtype)
-        cond = cond.to(dtype)
-        if stop_after == "input":
-            return x
+            time_feats = None
+            if cfg.concat_time_to_input:
+                # over the global batch: its rows mix across the batch
+                Bg = timestamps.shape[0]
+                if Bg != B * distributed.world_size(group):
+                    raise ValueError(f"timestamps hold {Bg} rows for {B} "
+                                     "rows of x on each rank")
+                row = min(6, timestamps.shape[1] - 1)
+                ts6 = timestamps[:, row, :].repeat_interleave(L, dim=0)
+                leads = torch.arange(1, L + 1, device=x.device).repeat(Bg)
+                ts6 = torch.cat([ts6, leads[:, None].to(ts6.dtype)], dim=-1)
+                time_feats = self._condition_time(ts6, Bg * L)
+                time_feats = time_feats[rank * B * L:(rank + 1) * B * L]
+
+            x = x.to(dtype)
+            cond = cond.to(dtype)
+            if stop_after == "input":
+                return x
         int8 = cfg.int8_convs and not self.training
-        if cfg.fuse_lead_stem and time_feats is not None:
-            out = self._fused_lead_stem(x, time_feats.to(dtype), cond, L,
-                                        int8, collect_amax)
-        else:
-            x = x.repeat_interleave(L, dim=0)
-            if time_feats is not None:
-                maps = time_feats[:, :, None, None].expand(-1, -1, hp, wp)
-                x = torch.cat([x, maps.to(x.dtype)], dim=1)
-            out = self.resnet1(x, cond, int8=int8, collect_amax=collect_amax,
-                               site="resnet1")
-        out = vnn.max_pool_2x(out)
-        if stop_after == "stem":
-            return out
+        with annotate("metnet3.stem"):
+            if cfg.fuse_lead_stem and time_feats is not None:
+                out = self._fused_lead_stem(x, time_feats.to(dtype), cond, L,
+                                            int8, collect_amax)
+            else:
+                x = x.repeat_interleave(L, dim=0)
+                if time_feats is not None:
+                    maps = time_feats[:, :, None, None].expand(-1, -1, hp, wp)
+                    x = torch.cat([x, maps.to(x.dtype)], dim=1)
+                out = self.resnet1(x, cond, int8=int8,
+                                   collect_amax=collect_amax, site="resnet1")
+            out = vnn.max_pool_2x(out)
+            if stop_after == "stem":
+                return out
         vit_stop = {"vit_mbconv": "mbconv",
                     "vit_block": "block"}.get(stop_after)
-        if not self.training:
-            out = self.vit(out, cond, stop_after=vit_stop)
-        elif remat:
-            bns = []
-            # the recompute runs in the backward, after a functional_call
-            # (bf16 over f32 masters) has put the masters back: it gets the
-            # parameters this forward sees
-            vit_params = dict(self.vit.named_parameters())
+        with annotate("metnet3.vit"):
+            if not self.training:
+                out = self.vit(out, cond, stop_after=vit_stop)
+            elif remat:
+                bns = []
+                # the recompute runs in the backward, after a
+                # functional_call (bf16 over f32 masters) has put the
+                # masters back: it gets the parameters this forward sees
+                vit_params = dict(self.vit.named_parameters())
 
-            def backbone(h, c):
-                stats = []
-                y = functional_call(self.vit, vit_params, (h, c),
-                                    dict(seeds=seeds, bn_stats=stats,
-                                         group=group, stop_after=vit_stop))
-                bns[:] = [bn for bn, _, _ in stats]
-                return (y, *[t for _, m, v in stats for t in (m, v)])
+                def backbone(h, c):
+                    stats = []
+                    y = functional_call(self.vit, vit_params, (h, c),
+                                        dict(seeds=seeds, bn_stats=stats,
+                                             group=group,
+                                             stop_after=vit_stop))
+                    bns[:] = [bn for bn, _, _ in stats]
+                    return (y, *[t for _, m, v in stats for t in (m, v)])
 
-            out, *flat = checkpoint(backbone, out, cond, use_reentrant=False)
-            bn_stats.extend(zip(bns, flat[0::2], flat[1::2]))
-        else:
-            out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats,
-                           group=group, stop_after=vit_stop)
-        if stop_after in ("vit_mbconv", "vit_block", "vit"):
-            return out
-        out = vnn.conv2d_transpose(out, self.up.weight, self.up.bias, stride=2)
-        out = self.resnet2(out, cond, int8=int8, collect_amax=collect_amax,
-                           site="resnet2")
-        out = unpad_hw(out, pv)
-        if stop_after == "resnet2" or return_features:
-            return out
-
-        head = self.classifier_pm25
-        preds = vnn.conv2d(out, head.weight, head.bias)
-        preds = preds[:, 0].reshape(B, L, H, Wd).float()
-        if cfg.normalization_method == "Standard":
-            preds = preds * cfg.pm25_std + cfg.pm25_mean
-        return preds
+                out, *flat = checkpoint(backbone, out, cond,
+                                        use_reentrant=False)
+                bn_stats.extend(zip(bns, flat[0::2], flat[1::2]))
+            else:
+                out = self.vit(out, cond, seeds=seeds, bn_stats=bn_stats,
+                               group=group, stop_after=vit_stop)
+            if stop_after in ("vit_mbconv", "vit_block", "vit"):
+                return out
+        with annotate("metnet3.up"):
+            out = vnn.conv2d_transpose(out, self.up.weight, self.up.bias,
+                                       stride=2)
+        with annotate("metnet3.resnet2"):
+            out = self.resnet2(out, cond, int8=int8,
+                               collect_amax=collect_amax, site="resnet2")
+            return unpad_hw(out, pv)
 
     def class_outputs(self, x: Tensor, timestamps: Tensor, *,
                       labels_pm25: Optional[Tensor] = None,
@@ -514,11 +545,9 @@ class MetNet3(nn.Module):
                 or self.up.weight.dtype != torch.float32):
             raise ValueError("MetNet3.class_outputs runs in float32 only, "
                              "as metnet3_class_outputs does")
-        feats = self(x, timestamps, generator=generator, bn_stats=bn_stats,
-                     return_features=True)
         ret = {}
 
-        def head(suffix, labels, region_targets):
+        def head(suffix, labels, region_targets):           # reads feats
             conv = getattr(self, f"classifier_{suffix}")
             bounds = getattr(self, f"{suffix}_boundaries")
             logits = vnn.conv2d(feats, conv.weight, conv.bias)
@@ -542,12 +571,18 @@ class MetNet3(nn.Module):
                     ret[f"regr_loss_{suffix}"] = regr_loss
             return loss + regr_loss
 
-        total = 0.0
-        if cfg.pm25 and cfg.pm25_class_head:
-            total = total + head("pm25", labels_pm25, region_targets_pm25)
-        if cfg.pm10:
-            total = total + head("pm10", labels_pm10, region_targets_pm10)
-        ret["loss"] = total
+        with annotate("metnet3.class_outputs"):
+            feats = self._features(x, timestamps, generator, bn_stats, False,
+                                   None, None, None)
+            with annotate("metnet3.head"):
+                total = 0.0
+                if cfg.pm25 and cfg.pm25_class_head:
+                    total = total + head("pm25", labels_pm25,
+                                         region_targets_pm25)
+                if cfg.pm10:
+                    total = total + head("pm10", labels_pm10,
+                                         region_targets_pm10)
+                ret["loss"] = total
         return ret
 
 

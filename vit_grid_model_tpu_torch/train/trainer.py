@@ -33,6 +33,12 @@ the JAX order:
   on the JAX mesh.  Clipping, AdamW, the BN write-back and the EMA then run
   identically on every rank, so the replicas stay equal; the metrics are
   the global batch's.
+* Spans (``utils/profiling.py::annotate``): ``train.step`` holds
+  ``train.cast`` (the parameters to the compute dtype), ``train.forward``,
+  ``train.loss``, ``train.backward`` (the gradients, with remat's
+  recompute, and their all-reduce) and ``train.update`` (global norm,
+  clip, AdamW, the BN and EMA copies, the returned metrics);
+  ``train_loop``'s logging readback is ``train.log``.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from vit_grid_model_tpu_torch.core.config import MetNet3Config, TrainConfig
 from vit_grid_model_tpu_torch.models.metnet3 import MetNet3
 from vit_grid_model_tpu_torch.train import losses as L
 from vit_grid_model_tpu_torch.utils.hbm import oom_guard
+from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -102,10 +109,13 @@ def model_forward(model: MetNet3, x: Tensor, timestamps: Tensor,
                   dtype: torch.dtype, **kw) -> Tensor:
     """``model(x, timestamps, **kw)`` with its parameters cast to
     ``dtype`` inside the call; the f32 masters receive the gradients."""
-    if dtype == torch.float32:
-        return model(x, timestamps, **kw)
-    params = {k: p.to(dtype) for k, p in model.named_parameters()}
-    return functional_call(model, params, (x, timestamps), kw)
+    with annotate("train.cast"):
+        params = ({} if dtype == torch.float32 else
+                  {k: p.to(dtype) for k, p in model.named_parameters()})
+    with annotate("train.forward"):
+        if not params:
+            return model(x, timestamps, **kw)
+        return functional_call(model, params, (x, timestamps), kw)
 
 
 def _to_device(a, device, dtype=None) -> Tensor:
@@ -135,6 +145,10 @@ def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig,
     max_norm = train_cfg.grad_clip_norm
 
     def step(state: TrainState, batch) -> Dict[str, Tensor]:
+        with annotate("train.step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> Dict[str, Tensor]:
         model = state.model
         device = model.up.weight.device
         x = _to_device(batch["x"], device, torch.float32)
@@ -148,55 +162,59 @@ def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig,
         preds = model_forward(model, x, ts, dtype, generator=state.generator,
                               bn_stats=bn_stats, remat=train_cfg.remat,
                               group=group)
-        loss = loss_fn(preds, targets, mask, group=group)
-        params = list(model.parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # an unused parameter gets a zero gradient, as in optax (AdamW then
-        # still decays it)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        if group is not None:
-            # one all-reduce of every gradient, flattened: the sum of the
-            # ranks' shares is the global batch's gradient
-            flat = distributed.all_reduce_sum(
-                torch.cat([g.reshape(-1) for g in grads]), group)
-            grads = [f.view_as(g) for f, g in zip(
-                flat.split([g.numel() for g in grads]), grads)]
-            loss = distributed.all_reduce_sum(loss.detach(), group)
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        # optax clip_by_global_norm: t / norm * max_norm where norm >= max
-        clip = gnorm >= max_norm
-        for p, g in zip(params, grads):
-            p.grad = torch.where(clip, g / gnorm * max_norm, g)
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = learning_rate(train_cfg, state.step)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            for bn, mean, var in bn_stats:
-                bn.running_mean.copy_(mean)
-                bn.running_var.copy_(var)
-            if state.ema is not None:
-                d = train_cfg.ema_decay
-                sd = model.state_dict()
-                for k, e in state.ema.items():
-                    e.copy_(e * d + sd[k] * (1.0 - d))
-        state.step += 1
-        preds = preds.detach()
-        if group is None:
-            pred_mean = preds.mean()
-            mse = torch.mean(torch.square(preds - torch.nan_to_num(targets)))
-        else:
-            n = preds.numel() * distributed.world_size(group)
-            sums = distributed.all_reduce_sum(torch.stack([
-                preds.sum(),
-                torch.square(preds - torch.nan_to_num(targets)).sum()]),
-                group)
-            pred_mean, mse = sums[0] / n, sums[1] / n
-        return {
-            "loss": loss.detach(), "grad_norm": gnorm.detach(),
-            "pred_mean": pred_mean, "rmse": torch.sqrt(mse),
-        }
+        with annotate("train.loss"):
+            loss = loss_fn(preds, targets, mask, group=group)
+        with annotate("train.backward"):
+            params = list(model.parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            # an unused parameter gets a zero gradient, as in optax (AdamW
+            # then still decays it)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if group is not None:
+                # one all-reduce of every gradient, flattened: the sum of
+                # the ranks' shares is the global batch's gradient
+                flat = distributed.all_reduce_sum(
+                    torch.cat([g.reshape(-1) for g in grads]), group)
+                grads = [f.view_as(g) for f, g in zip(
+                    flat.split([g.numel() for g in grads]), grads)]
+                loss = distributed.all_reduce_sum(loss.detach(), group)
+        with annotate("train.update"):
+            preds = preds.detach()
+            gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            # optax clip_by_global_norm: t / norm * max_norm where norm >= max
+            clip = gnorm >= max_norm
+            for p, g in zip(params, grads):
+                p.grad = torch.where(clip, g / gnorm * max_norm, g)
+            for param_group in state.optimizer.param_groups:
+                param_group["lr"] = learning_rate(train_cfg, state.step)
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for bn, mean, var in bn_stats:
+                    bn.running_mean.copy_(mean)
+                    bn.running_var.copy_(var)
+                if state.ema is not None:
+                    d = train_cfg.ema_decay
+                    sd = model.state_dict()
+                    for k, e in state.ema.items():
+                        e.copy_(e * d + sd[k] * (1.0 - d))
+            state.step += 1
+            if group is None:
+                pred_mean = preds.mean()
+                mse = torch.mean(torch.square(
+                    preds - torch.nan_to_num(targets)))
+            else:
+                n = preds.numel() * distributed.world_size(group)
+                sums = distributed.all_reduce_sum(torch.stack([
+                    preds.sum(),
+                    torch.square(preds - torch.nan_to_num(targets)).sum()]),
+                    group)
+                pred_mean, mse = sums[0] / n, sums[1] / n
+            return {
+                "loss": loss.detach(), "grad_norm": gnorm.detach(),
+                "pred_mean": pred_mean, "rmse": torch.sqrt(mse),
+            }
 
     return step
 
@@ -227,14 +245,16 @@ def train_loop(state: TrainState, batches: Iterable, step_fn: Callable, *,
                 step_seconds.append(now - last_end)
                 last_end = now
             if i % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                now = time.time()
-                rate = (i + 1) / (now - t0)
-                # rolling window = the steady state, free of warmup
-                last = ((i + 1 - roll[0]) / max(now - roll[1], 1e-9)
-                        if i else 0.0)
-                roll[:] = [i + 1, now]
-                log(f"step {state.step}: loss={m['loss']:.4f} "
-                    f"rmse={m['rmse']:.3f} gnorm={m['grad_norm']:.3f} "
-                    f"({rate:.2f} steps/s cum, {last:.2f} last-{log_every})")
+                with annotate("train.log"):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    now = time.time()
+                    rate = (i + 1) / (now - t0)
+                    # rolling window = the steady state, free of warmup
+                    last = ((i + 1 - roll[0]) / max(now - roll[1], 1e-9)
+                            if i else 0.0)
+                    roll[:] = [i + 1, now]
+                    log(f"step {state.step}: loss={m['loss']:.4f} "
+                        f"rmse={m['rmse']:.3f} gnorm={m['grad_norm']:.3f} "
+                        f"({rate:.2f} steps/s cum, {last:.2f} "
+                        f"last-{log_every})")
     return state
