@@ -172,7 +172,24 @@ station-image variant of the 12-hour model.  Phases:
    within 1e-6 of max|out| (the same launches on the same operands:
    bit-equal by construction), K1 launched twice a forward, both on its
    strip path; the forward's median ms.  Each sub-phase prints its
-   seconds.
+   seconds;
+18. the resnet Block epilogue kernel (``ops/cuda/norm_act.py``, ChanLayerNorm
+   -> FiLM -> ReLU -> residual in one pass) at the benchmark's map, B 24 x
+   12 leads x 128 channels over 84 x 70, in bf16 and f32, channels_last and
+   NCHW, block1's case (FiLM) and block2's (residual): held to its plain
+   version (f32 2e-5 of max, bf16 one step), a second launch bit-identical,
+   its ms a launch over 20 back-to-back launches (CUDA events) beside its
+   byte bound (bf16 0.259 / 0.388 ms), one call's median ms on an idle
+   device (the wrapper's host checks inside), the eager epilogue's and the
+   plain version's; its launches counted by route; then
+   one forward at B = 24 of the --fast and the f32 configurations, each 8
+   launches and no eager epilogue, with the routes they took.
+
+Phases 3, 4, 6, 13a-c, 15a-b and 17b-c also read that kernel's counters
+(``norm_act_counts``): on every inference path 8 launches a forward and no
+eager epilogue (the int8 forward copies one residual into its conv's
+layout), in training no launch and 8 eager epilogues a forward; the kernel
+report gives its launches by path and route.
 
 Any failure raises and the exit code is not 0.  The last two lines are the
 kernel report and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -471,6 +488,7 @@ def whole_model(dev):
     from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
     from vit_grid_model_tpu_torch.core.weights import seeded_model
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
     cfg = shipped_12hr_model_config(pm25_mean=mean, pm25_std=std)
@@ -487,9 +505,11 @@ def whole_model(dev):
         cpu_s = time.perf_counter() - t0
         gpu_model = seeded_model(cfg, SEED).to(dev)
         before = cuda_attn.launches
+        cuda_norm_act.reset_launches()
         gpu_out = gpu_model(x.to(dev), ts.to(dev))
         torch.cuda.synchronize()
         launched = cuda_attn.launches - before
+        norm_act_counts("f32 forward", 1)
     gpu_out = gpu_out.cpu()
     if tuple(gpu_out.shape) != (1, 12, 82, 67):
         raise AssertionError(f"output shape {tuple(gpu_out.shape)}")
@@ -517,6 +537,35 @@ def note_k1_designs(path: str) -> None:
     K1_DESIGNS_BY_PATH[path] = dict(cuda_attn.fwd_route_launches)
 
 
+# the Block epilogue kernel's launches on each path that runs a forward, by
+# route (the wrapper's launches_by_route, read where the path checks them)
+NORM_ACT_BY_PATH: dict = {}
+NORM_ACT_BLOCKS = 8    # two ResnetBlocks of two Blocks, stem and resnet2
+
+
+def norm_act_counts(path: str, forwards: int, eager_forwards: int = 0,
+                    relaid: int = 0) -> int:
+    """Check the Block epilogue kernel's counters since their last reset:
+    a launch for each full-resolution ``Block`` of ``forwards`` inference
+    forwards, the eager ops for each of ``eager_forwards`` forwards under
+    autograd, ``relaid`` residuals copied into x's layout.  Notes the
+    launches by route under ``path`` and returns them."""
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
+
+    got = (cuda_norm_act.launches, cuda_norm_act.eager_epilogues,
+           cuda_norm_act.relaid_residuals)
+    want = (NORM_ACT_BLOCKS * forwards, NORM_ACT_BLOCKS * eager_forwards,
+            relaid)
+    NORM_ACT_BY_PATH[path] = dict(cuda_norm_act.launches_by_route)
+    print(f"{path}: Block epilogue kernel launches {got[0]} "
+          f"{NORM_ACT_BY_PATH[path]}, eager epilogues {got[1]}, residuals "
+          f"relaid {got[2]} (expected {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{path}: Block epilogue counts (launches, "
+                             f"eager, relaid) {got}, expected {want}")
+    return got[0]
+
+
 def main_path(card: str, root: str):
     """Phase 4: the --fast evaluation CLI over a synthetic tree, written
     under ``root`` and kept for phase 13.  Returns (K1 launches, the tree's
@@ -527,6 +576,7 @@ def main_path(card: str, root: str):
     from vit_grid_model_tpu_torch.cli import evaluation_vit as cli
     from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     # 100 hourly samples: four full batches of 25
     start, end = EVAL_WINDOW
@@ -539,10 +589,12 @@ def main_path(card: str, root: str):
     argv = eval_argv(paths, EVAL_WINDOW, log_dir) + ["--collect_valid_times"]
     timing = BatchTiming()
     cuda_attn.reset_launches()
+    cuda_norm_act.reset_launches()
     metrics = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
     note_k1_designs("evaluation")
+    norm_act_counts("evaluation", len(timing.samples))
     if cuda_attn.bwd_launches or cuda_attn.hash_launches:
         raise AssertionError("the evaluation ran a backward or dropout")
     with open(os.path.join(log_dir, "test_smoke.log")) as f:
@@ -590,6 +642,7 @@ def serving_path(dev, card: str):
     from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
     from vit_grid_model_tpu_torch.evaluation.serving import Forecaster
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
     cfg = shipped_12hr_model_config(pm25_mean=mean, pm25_std=std)
@@ -598,6 +651,7 @@ def serving_path(dev, card: str):
     ts = np.stack([np.full(25, 2023.0), np.full(25, 1.0), np.full(25, 15.0),
                    np.arange(25) % 24], axis=-1)[None].astype(np.float32)
     cuda_attn.reset_launches()
+    cuda_norm_act.reset_launches()
     t0 = time.perf_counter()
     f = Forecaster(seeded_model(cfg, SEED), device="cuda",
                    warmup=SERVING_WARMUP)
@@ -609,6 +663,7 @@ def serving_path(dev, card: str):
         latencies.append(1e3 * (time.perf_counter() - t0))
     launches = cuda_attn.launches
     note_k1_designs("serving")
+    norm_act_counts("serving", SERVING_WARMUP + SERVING_REQUESTS)
     expect = 2 * sum(cfg.depth_tuple) * (SERVING_WARMUP + SERVING_REQUESTS)
     print(f"Forecaster(device='cuda'): {f.cfg.compute_dtype}, fused stem "
           f"{f.cfg.fuse_lead_stem}; construction with {SERVING_WARMUP} "
@@ -687,6 +742,7 @@ def generation_path(paths, root: str, card: str):
     from vit_grid_model_tpu_torch.data import readers
     from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     start, end = GENERATION_WINDOW
     samples = int((end - start).total_seconds() // 3600) + 1
@@ -698,10 +754,12 @@ def generation_path(paths, root: str, card: str):
     readers.clear_caches()
     timing = BatchTiming()
     cuda_attn.reset_launches()
+    cuda_norm_act.reset_launches()
     written = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
     note_k1_designs("generation")
+    norm_act_counts("generation", len(timing.samples))
     files = sorted(os.listdir(out_dir))
     print(f"generation: {samples} samples, batches {timing.samples}; "
           f"{len(files)} field files; K1 launches {launches} (expected 2 x "
@@ -733,16 +791,19 @@ def station_path(paths, root: str, card: str):
     from vit_grid_model_tpu_torch.data import readers
     from vit_grid_model_tpu_torch.evaluation.driver import BatchTiming
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     log_dir = os.path.join(root, "station_logs")
     argv = eval_argv(paths, STATION_WINDOW, log_dir)
     readers.clear_caches()
     timing = BatchTiming()
     cuda_attn.reset_launches()
+    cuda_norm_act.reset_launches()
     metrics = cli.main(argv, timing=timing)
     torch.cuda.synchronize()
     launches = cuda_attn.launches
     note_k1_designs("station evaluation")
+    norm_act_counts("station evaluation", len(timing.samples))
     batches = len(timing.samples)
     summary = metrics.summary()
     with open(os.path.join(log_dir, "test_smoke_by_stn.log")) as f:
@@ -1480,6 +1541,7 @@ def train_path(card: str):
     from vit_grid_model_tpu_torch.core.weights import (
         load_reference_checkpoint, seeded_model)
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     with tempfile.TemporaryDirectory(prefix="vgm_train_") as root:
         ckpt_dir = os.path.join(root, "check_points")
@@ -1491,9 +1553,11 @@ def train_path(card: str):
             lines.append(line)
 
         cuda_attn.reset_launches()
+        cuda_norm_act.reset_launches()
         state = cli.main(argv, step_seconds=seconds, log=log)
         torch.cuda.synchronize()
         note_k1_designs("training")
+        norm_act_counts("training", 0, eager_forwards=TRAIN_STEPS)
         counts = {"window_attention_fwd": cuda_attn.launches,
                   "window_attention_bwd": cuda_attn.bwd_launches,
                   "window_attention_wgrad": cuda_attn.wgrad_launches,
@@ -2420,6 +2484,7 @@ def class_head_path(dev, card: str):
 
     from vit_grid_model_tpu_torch.core.weights import seeded_model
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
     from vit_grid_model_tpu_torch.repros.common import cuda_ms
 
     # f32 products in f32: the --fast CLIs of earlier phases turn TF32 on
@@ -2433,10 +2498,12 @@ def class_head_path(dev, card: str):
             x, ts, **class_targets(labels, regions))
         model = seeded_model(cfg, SEED).to(dev)
         cuda_attn.reset_launches()
+        cuda_norm_act.reset_launches()
         out = model.class_outputs(x.to(dev), ts.to(dev), **class_targets(
             labels.to(dev), regions.to(dev)))
         torch.cuda.synchronize()
         launched = cuda_attn.launches
+        norm_act_counts("class outputs", 1)
     if launched != 2 * layers:
         raise AssertionError(f"{launched} K1 launches in one class forward")
     if set(out) != set(ref):
@@ -2470,9 +2537,11 @@ def class_head_path(dev, card: str):
         return loss
 
     cuda_attn.reset_launches()
+    cuda_norm_act.reset_launches()
     loss = step()
     torch.cuda.synchronize()
     note_k1_designs("class-head step")
+    norm_act_counts("class-head step", 0, eager_forwards=1)
     counts = {"window_attention_fwd": cuda_attn.launches,
               "window_attention_bwd": cuda_attn.bwd_launches,
               "window_attention_wgrad": cuda_attn.wgrad_launches,
@@ -2508,6 +2577,12 @@ def class_head_path(dev, card: str):
     return counts
 
 
+# the int8 forward's residuals copied into x's layout for the Block
+# epilogue kernel: the stem's block2 (an int8 conv's channels_last output,
+# the fused stem's NCHW residual); every other Block's match
+INT8_RELAID = 1
+
+
 def int8_path(dev, card: str):
     """Phase 15b: int8 PTQ of the --fast configuration (bf16, fused stem,
     NHWC input) at batch 25: calibrate on one synthetic batch, each of the
@@ -2523,6 +2598,7 @@ def int8_path(dev, card: str):
     from vit_grid_model_tpu_torch.core.weights import seeded_model
     from vit_grid_model_tpu_torch.ops import quantize as Q
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
     from vit_grid_model_tpu_torch.repros.common import bound_ms, cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False     # the f32 yardstick
@@ -2568,10 +2644,14 @@ def int8_path(dev, card: str):
     with torch.inference_mode():
         Q.reset_launches()
         cuda_attn.reset_launches()
+        cuda_norm_act.reset_launches()
         y_int8 = model(x, ts)
         torch.cuda.synchronize()
         launches = (cuda_attn.launches, Q.launches)
         note_k1_designs("int8 forward")
+        # the int8 convs write channels_last; the fused stem's residual is
+        # NCHW, so its block2 copies it into the conv output's layout
+        norm_act_counts("int8 forward", 1, relaid=INT8_RELAID)
         for h in hooks:
             h.remove()
         y_bf16 = float_model(x, ts)
@@ -3194,6 +3274,7 @@ def station_image_model(dev, card: str):
     from vit_grid_model_tpu_torch.data.assembly import (host_stage_dtype,
                                                         model_input_to_nhwc)
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 
     phase("17b", "the station-image 12-hour model in f32, GPU vs CPU")
     t = time.perf_counter()
@@ -3205,9 +3286,11 @@ def station_image_model(dev, card: str):
         cpu_out = seeded_model(cfg, SEED)(xt, tst)
         gpu_model = seeded_model(cfg, SEED).to(dev)
         cuda_attn.reset_launches()
+        cuda_norm_act.reset_launches()
         gpu_out = gpu_model(xt.to(dev), tst.to(dev))
         torch.cuda.synchronize()
         f32_launches = k1_counts("station-image f32 forward", "first", layers)
+        norm_act_counts("station-image f32 forward", 1)
     gpu_out = gpu_out.cpu()
     scale = cpu_out.abs().max().item()
     f32_err = (gpu_out - cpu_out).abs().max().item() / scale
@@ -3238,10 +3321,12 @@ def station_image_model(dev, card: str):
         fast = seeded_model(fast_cfg, SEED).to(dev, torch.bfloat16)
         xn = staged.to(dev)
         cuda_attn.reset_launches()
+        cuda_norm_act.reset_launches()
         out = fast(xn, tst)
         torch.cuda.synchronize()
         fast_launches = k1_counts("station-image --fast forward", "strip",
                                   layers)
+        norm_act_counts("station-image --fast forward", 1)
         standard = seeded_model(std_cfg, SEED).to(dev, torch.bfloat16)
         ref = standard(torch.from_numpy(x).to(dev, torch.bfloat16), tst)
         ms = median_ms(lambda: fast(xn, tst))
@@ -3282,6 +3367,187 @@ def station_image_path(paths, dev, card: str):
         "k1_launches": {"f32": launches[0], "fast": launches[1]}}}),
         flush=True)
     return launches
+
+
+# phase 18: the resnet Block epilogue kernel at the benchmark's
+# full-resolution map, B 24 x 12 leads of 128 channels over 84 x 70, and
+# the cases timed there: block1's (FiLM, no residual) and block2's
+# (residual, no FiLM) in each layout and dtype
+NORM_ACT_SHAPE = (24 * 12, 128, 84, 70)
+NORM_ACT_CASES = ((True, False), (False, True))
+NORM_ACT_BATCH = 24
+NORM_ACT_STEPS = 20    # back-to-back launches timed for the kernel's ms
+# max|kernel - plain| / max|plain|: f32 channel sums in another order; bf16
+# one step where the f32 values round apart
+NORM_ACT_TOLERANCE = {"float32": 2e-5, "bfloat16": 2 ** -7}
+
+
+def norm_act_operands(shape, dtype, form, film, res, seed, device="cuda"):
+    """x in layout ``form``, g and b (1, C, 1, 1), (scale, shift) cut from
+    one (N, 2C) product as ``ResnetBlock.scale_shift`` cuts them (or None),
+    and the residual in x's layout (or None), drawn on ``device``."""
+    import torch
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, c = shape[:2]
+
+    def t(*dims, scale=1.0, shift=0.0):
+        return (torch.randn(*dims, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    fmt = (torch.channels_last if form == "nhwc"
+           else torch.contiguous_format)
+    x = t(*shape, scale=3.0, shift=0.5).contiguous(memory_format=fmt)
+    norm_g, norm_b = t(1, c, 1, 1, scale=0.2, shift=1.0), t(1, c, 1, 1,
+                                                           scale=0.2)
+    ss = None
+    if film:
+        scale, shift = t(rows, 2 * c, scale=0.3).chunk(2, dim=-1)
+        ss = scale[:, :, None, None], shift[:, :, None, None]
+    r = t(*shape).contiguous(memory_format=fmt) if res else None
+    return x, norm_g, norm_b, ss, r
+
+
+def norm_act_forward_routes(dev):
+    """The routes of the kernel's launches in one forward at B = 24 of the
+    benchmark's two inference configurations: ``--fast`` (bf16, fused stem,
+    NHWC input) and f32 (standard stem, 5-D input); each must launch it
+    once a Block and run no eager epilogue."""
+    import dataclasses
+
+    import torch
+
+    from vit_grid_model_tpu_torch.core.config import shipped_12hr_model_config
+    from vit_grid_model_tpu_torch.core.weights import seeded_model
+    from vit_grid_model_tpu_torch.data.synthetic import DEFAULT_FEAT_INFOS
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
+
+    mean, std = DEFAULT_FEAT_INFOS["PM2.5"]
+    base = shipped_12hr_model_config(pm25_mean=mean, pm25_std=std)
+    rng = np.random.default_rng(SEED + 18)
+    ts = torch.from_numpy(np.stack(
+        [np.full(25, 2023.0), np.full(25, 1.0), np.full(25, 15.0),
+         np.arange(25) % 24], axis=-1)[None].repeat(NORM_ACT_BATCH, 0)
+        .astype(np.float32)).to(dev)
+    routes = {}
+    for name, cfg, dtype in (
+            ("bf16 --fast", dataclasses.replace(
+                base, compute_dtype="bfloat16", fuse_lead_stem=True,
+                nhwc_input=True), torch.bfloat16),
+            ("f32", base, torch.float32)):
+        shape = ((NORM_ACT_BATCH, 84, 70, 25 * 24) if cfg.nhwc_input
+                 else (NORM_ACT_BATCH, 25, 24, 82, 67))
+        x = torch.from_numpy((rng.random(shape) * 50).astype(np.float32))
+        model = seeded_model(cfg, SEED).to(dev, dtype)
+        cuda_norm_act.reset_launches()
+        with torch.inference_mode():
+            out = model(x.to(dev, dtype), ts)
+        torch.cuda.synchronize()
+        norm_act_counts(f"B = {NORM_ACT_BATCH} {name} forward", 1)
+        routes[name] = dict(cuda_norm_act.launches_by_route)
+        if not torch.isfinite(out).all().item():
+            raise AssertionError(f"{name} forward is not finite")
+        del model, out
+        torch.cuda.empty_cache()
+    return routes
+
+
+def norm_act_path(dev, card: str):
+    """Phase 18: the Block epilogue kernel alone at the benchmark's map in
+    each dtype, layout and case, held to its plain version, timed beside
+    its byte bound, the plain version and the eager epilogue, then the
+    routes of two B = 24 forwards.  Returns (bf16 NHWC block2's error, ms,
+    plain ms, bound)."""
+    import torch
+
+    from vit_grid_model_tpu_torch.models.metnet3 import _norm_act_eager
+    from vit_grid_model_tpu_torch.ops import nn as vnn
+    from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
+    from vit_grid_model_tpu_torch.repros.common import bound_ms, cuda_ms
+
+    t18 = time.perf_counter()
+    rows, c, h, w = NORM_ACT_SHAPE
+    cuda_norm_act.reset_launches()
+    counted = {form: 0 for form in cuda_norm_act.ROUTES}
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for form in ("nhwc", "nchw"):
+            for film, res in NORM_ACT_CASES:
+                x, g, b, ss, r = norm_act_operands(
+                    NORM_ACT_SHAPE, dtype, form, film, res, SEED + 18)
+                if cuda_norm_act.route(x, g, b, ss, r) != form:
+                    raise AssertionError(f"{name} {form}: route "
+                                         f"{cuda_norm_act.refusal(x, g, b, ss, r)}")
+                norm = vnn.ChanLayerNorm(c).to(dev, dtype)
+                with torch.no_grad():
+                    norm.g.copy_(g)
+                    norm.b.copy_(b)
+                with torch.inference_mode():
+                    ours = cuda_norm_act.chan_norm_act(x, g, b, ss, r)
+                    again = cuda_norm_act.chan_norm_act(x, g, b, ss, r)
+                    ref = cuda_norm_act.chan_norm_act_reference(x, g, b, ss,
+                                                                r)
+                    d, scale = kernel_errors(ours, again, ref,
+                                             f"chan_norm_act {name} {form}")
+                    err = d / scale
+                    counted[form] += 2
+
+                    def launch():
+                        return cuda_norm_act.chan_norm_act(x, g, b, ss, r)
+
+                    # the kernel's time over back-to-back launches (the
+                    # wrapper's host checks overlap the launch before),
+                    # and one call's on an idle device, those included
+                    ms = cuda_ms(launch, iters=NORM_ACT_STEPS)
+                    call_ms = median_ms(launch)
+                    counted[form] += (NORM_ACT_STEPS + 2 + LEGACY_ITERS
+                                      + LEGACY_WARMUP)
+                    eager_ms = median_ms(
+                        lambda: _norm_act_eager(norm, x, ss, r))
+                    plain_ms = median_ms(
+                        lambda: cuda_norm_act.chan_norm_act_reference(
+                            x, g, b, ss, r))
+                if err > NORM_ACT_TOLERANCE[name]:
+                    raise AssertionError(f"chan_norm_act {name} {form}: "
+                                         f"error {err}")
+                item = x.element_size()
+                moved = rows * c * h * w * item * (3 if res else 2)
+                bound = bound_ms(0, moved, dtype)
+                case = "block2 (residual)" if res else "block1 (FiLM)"
+                results[(name, form, res)] = (err, ms, plain_ms, bound,
+                                              call_ms)
+                print(f"chan_norm_act {name} {form} {case} at "
+                      f"{NORM_ACT_SHAPE}: {ms:.4f} ms a launch, "
+                      f"{moved / ms / 1e6:.0f} GB/s, "
+                      f"{100 * bound[0] / ms:.1f}% of its bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}); a call "
+                      f"{call_ms:.4f} ms; eager epilogue "
+                      f"{eager_ms:.3f} ms ({eager_ms / ms:.1f}x); plain "
+                      f"{plain_ms:.3f} ms; max|d| / max {err:.2e}; card: "
+                      f"{card}", flush=True)
+                del x, g, b, ss, r, ours, again, ref, norm
+    if dict(cuda_norm_act.launches_by_route) != counted or (
+            cuda_norm_act.launches != sum(counted.values())):
+        raise AssertionError(f"chan_norm_act launches by route "
+                             f"{dict(cuda_norm_act.launches_by_route)}, "
+                             f"expected {counted}")
+    torch.cuda.empty_cache()
+    routes = norm_act_forward_routes(dev)
+    print(f"chan_norm_act routes of a B = {NORM_ACT_BATCH} forward, "
+          f"{NORM_ACT_BLOCKS} launches each, no eager epilogue: "
+          + "; ".join(f"{k} {v}" for k, v in routes.items())
+          + f"; phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+    err, ms, plain_ms, bound, _ = results[("bfloat16", "nhwc", True)]
+    print(json.dumps({"phase18": {
+        "card": card, "routes": routes,
+        "cases": [{"dtype": k[0], "layout": k[1], "residual": k[2],
+                   "max_abs_err": v[0], "ms": v[1], "call_ms": v[4],
+                   "plain_ms": v[2], "bound_ms": v[3][0]}
+                  for k, v in results.items()]}}),
+        flush=True)
+    return err, ms, plain_ms, bound
 
 
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
@@ -3597,6 +3863,9 @@ def run(root: str) -> int:
     stn_img_launches = station_image_path(tree, dev, card)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
+    phase(18, "the Block epilogue kernel vs plain, and its routes")
+    na_err, na_ms, na_plain_ms, na_bound = norm_act_path(dev, card)
+
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
         "bfloat16"]
@@ -3660,7 +3929,12 @@ def run(root: str) -> int:
         ("fused_mbconv", "fused_mbconv.cu",
          "benchmarks/mosaic_repros/repro_fused_mbconv.py:101",
          mb_launches["fused_mbconv"],
-         mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound, None)]
+         mb_err, mb["kernel spb=1"][0], mb["plain"][0], mb_bound, None),
+        # no TPU kernel: XLA fused these ops; the main path's launches, and
+        # bf16 channels_last block2 at the benchmark's map
+        ("chan_norm_act", "chan_norm_act.cu", "none (XLA fused these ops)",
+         sum(NORM_ACT_BY_PATH["evaluation"].values()), na_err, na_ms,
+         na_plain_ms, na_bound, None)]
     # R1 and R14 at the repro's Bw = 2,880, R7 at the flagship S = 300
     ph = ph_results[2880]
     ph_bound = repro_perhead.bound_ms(
@@ -3772,12 +4046,14 @@ def run(root: str) -> int:
                "maxvit_layer_attention": "strip",
                "stacked_softmax_attention": "strip",
                "dropout_keep_mask": "chunks",
+               "chan_norm_act": "nhwc",
                "staged_attention_core": "ring"}
     designs.update({k[0]: "strip" for k in kernels
                     if k[0].startswith(("outproj_", "headpack_"))})
     # launches on the paths besides the main one, where a kernel has them,
     # by the design each launch took
-    by_path = {"window_attention_fwd": fwd_by_path}
+    by_path = {"window_attention_fwd": fwd_by_path,
+               "chan_norm_act": NORM_ACT_BY_PATH}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,

@@ -78,6 +78,7 @@ from vit_grid_model_tpu_torch.models.classification import (
 from vit_grid_model_tpu_torch.models.maxvit import MaxViT
 from vit_grid_model_tpu_torch.ops import nn as vnn
 from vit_grid_model_tpu_torch.ops import quantize as Q
+from vit_grid_model_tpu_torch.ops.cuda import norm_act as cuda_norm_act
 from vit_grid_model_tpu_torch.train import losses as L
 from vit_grid_model_tpu_torch.utils.profiling import annotate
 
@@ -87,8 +88,9 @@ from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 
 class Block(nn.Module):
-    """3x3 conv -> ChanLayerNorm -> optional (scale + 1, shift) -> ReLU.
-    ``proj_q``: the conv's int8 sidecar (``ops/quantize.py``), or None."""
+    """3x3 conv -> ChanLayerNorm -> optional (scale + 1, shift) -> ReLU ->
+    optional residual add.  ``proj_q``: the conv's int8 sidecar
+    (``ops/quantize.py``), or None."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
@@ -98,27 +100,46 @@ class Block(nn.Module):
 
     def forward(self, x: Tensor,
                 scale_shift: Optional[Tuple[Tensor, Tensor]] = None, *,
-                int8: bool = False,
+                residual: Optional[Tensor] = None, int8: bool = False,
                 collect_amax: Optional[Dict[str, Tensor]] = None,
                 site: Optional[str] = None) -> Tensor:
-        """``int8``: take the int8 sidecar where there is one;
-        ``collect_amax``: record max-|x| under ``site`` (calibration)."""
+        """``residual``: added after the ReLU; ``int8``: take the int8
+        sidecar where there is one; ``collect_amax``: record max-|x| under
+        ``site`` (calibration)."""
         if collect_amax is not None and site is not None:
             Q.record_amax(collect_amax, site, x)
         if int8 and self.proj_q is not None:
             x = Q.conv2d_int8(self.proj_q, x)
         else:
             x = vnn.conv2d(x, self.proj.weight, self.proj.bias, padding=1)
-        return _norm_act(self.norm, x, scale_shift)
+        return _norm_act(self.norm, x, scale_shift, residual)
 
 
 def _norm_act(norm: vnn.ChanLayerNorm, x: Tensor,
-              scale_shift: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
+              scale_shift: Optional[Tuple[Tensor, Tensor]],
+              residual: Optional[Tensor] = None) -> Tensor:
+    """ChanLayerNorm -> (scale + 1, shift) -> ReLU -> + residual: on CUDA
+    one kernel (``ops/cuda/norm_act.py``) wherever it takes the operands (a
+    forward that needs no gradient), else the eager ops."""
+    if x.is_cuda:
+        form = cuda_norm_act.route(x, norm.g, norm.b, scale_shift, residual)
+        if form is not None:
+            return cuda_norm_act.launch(form, x, norm.g, norm.b, scale_shift,
+                                        residual)
+        cuda_norm_act.count_eager()
+    return _norm_act_eager(norm, x, scale_shift, residual)
+
+
+def _norm_act_eager(norm: vnn.ChanLayerNorm, x: Tensor,
+                    scale_shift: Optional[Tuple[Tensor, Tensor]],
+                    residual: Optional[Tensor] = None) -> Tensor:
+    """``_norm_act`` as separate ATen ops, each rounding to x's dtype."""
     x = norm(x)
     if scale_shift is not None:
         scale, shift = scale_shift
         x = x * (scale + 1.0) + shift
-    return torch.relu(x)
+    x = torch.relu(x)
+    return x if residual is None else x + residual
 
 
 class ResnetBlock(nn.Module):
@@ -147,11 +168,10 @@ class ResnetBlock(nn.Module):
             return dict(int8=int8, collect_amax=collect_amax,
                         site=f"{site}.{block}" if site else None)
 
-        h = self.block1(x, self.scale_shift(cond), **kw("block1"))
-        h = self.block2(h, **kw("block2"))
         res = (vnn.conv2d(x, self.res_conv.weight, self.res_conv.bias)
                if self.res_conv is not None else x)
-        return h + res
+        h = self.block1(x, self.scale_shift(cond), **kw("block1"))
+        return self.block2(h, residual=res, **kw("block2"))
 
 
 class ResnetBlocks(nn.Module):
@@ -338,16 +358,15 @@ class MetNet3(nn.Module):
         k_maps = vnn.conv2d(ones, w[:, n_shared:].reshape(-1, 1, 3, 3),
                             padding=1).reshape(w.shape[0], n_time, hp, wp)
         y = y + torch.einsum("bj,ojhw->bohw", time_feats, k_maps)
-        h = _norm_act(first.block1.norm, y, first.scale_shift(cond))
-        h = first.block2(h, int8=int8, collect_amax=collect_amax,
-                         site="resnet1.0.block2")
 
         res_w = first.res_conv.weight                       # (O, C_in, 1, 1)
         res = vnn.conv2d(x, res_w[:, :n_shared]).repeat_interleave(L, dim=0)
         res = res + vnn.linear(time_feats,
                                res_w[:, n_shared:, 0, 0])[:, :, None, None]
         res = res + first.res_conv.bias[:, None, None]
-        out = h + res
+        h = _norm_act(first.block1.norm, y, first.scale_shift(cond))
+        out = first.block2(h, residual=res, int8=int8,
+                           collect_amax=collect_amax, site="resnet1.0.block2")
         for i, block in enumerate(self.resnet1.blocks[1:], start=1):
             out = block(out, cond, int8=int8, collect_amax=collect_amax,
                         site=f"resnet1.{i}")
