@@ -260,3 +260,13 @@ def test_kernels_by_span_sums_each_owner():
         "train.step/train.backward/maxvit.mbconv": [20e-9, 1],
         "train.step": [20e-9, 1],
         "": [5e-9, 1]}
+
+
+def test_copies_are_counted_when_asked():
+    events = _spans() + _launch(25, 1, 7) + [
+        _Event("cudaMemcpyAsync", 70, 72, corr=8),
+        _Event("Memcpy DtoD (Device -> Device)", 150, 160, device=True,
+               corr=8)]
+    assert profiling.kernels_by_span(events, copies=True) == {
+        "train.step/train.backward": [20e-9, 1],
+        "train.step/train.update": [10e-9, 1]}

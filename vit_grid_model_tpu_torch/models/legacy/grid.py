@@ -22,6 +22,15 @@ non-persistent buffers.  Details kept from the JAX package:
   cycle channels against the grid history by RevIN, DishTS or Standard
   and denormalises the output the same way, DishTS with the statistics of
   the last of its four cycle calls; the other versions de-standardise.
+
+A forward opens the spans (``utils/profiling.py::annotate``)
+``grid.forward`` > ``grid.input`` (location and time features, PM
+standardisation, v3's normalisation), ``grid.encode`` and ``grid.decode``;
+inside the last two ``grid.lstm`` around each LSTM cell step and
+``grid.step_input`` around each grid step's input, and inside
+``grid.decode`` also ``grid.joint_attn`` and ``grid.head`` (``last_fc``,
+the denormalisation and ReLU).  Every kernel of a forward is launched in
+one of them.
 """
 
 from __future__ import annotations
@@ -41,8 +50,12 @@ from vit_grid_model_tpu_torch.models.normalizers import (DishTS, RevIN,
 from vit_grid_model_tpu_torch.ops.recurrent import (lstm_cell,
                                                     mha_self_attention,
                                                     residual_masked_attention)
+from vit_grid_model_tpu_torch.utils.profiling import annotate
 
 PM_CYCLE_OFFSETS = (4, 10, 16, 22)
+# the same channels as one strided view: indexing by a list of offsets
+# copies the list to the device and waits for the device at each use
+PM_CYCLES = slice(4, 23, 6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,10 +150,9 @@ class GridModel(nn.Module):
         lead = blk[..., s4:].reshape(b, cells, 4)
         lead_enc = self.simulation_hour_encoder(lead).reshape(b, cells, -1)
         if standardize_pm:
-            idx = list(PM_CYCLE_OFFSETS)
             sim_vals = sim_vals.clone()
-            sim_vals[:, :, idx] = ((sim_vals[:, :, idx] - spec.pm25_mean)
-                                   / spec.pm25_std)
+            pm = sim_vals[:, :, PM_CYCLES]
+            pm.copy_((pm - spec.pm25_mean) / spec.pm25_std)
         return torch.cat([grid_time, sim_vals.reshape(b * cells, -1),
                           lead_enc.reshape(b * cells, -1), grid_loc], dim=-1)
 
@@ -187,79 +199,97 @@ class GridModel(nn.Module):
         b = feats.shape[0]
         h_dim, stn, cells = spec.hidden_dim, spec.total_stn_num, spec.cells
         grid_lstm = getattr(self, self.grid_lstm_name)
+        with annotate("grid.forward"):
+            with annotate("grid.input"):
+                stn_loc = location_features(self, self.lats, self.lons, b)
+                grid_loc = location_features(self, self.cmaq_coords[..., 0],
+                                             self.cmaq_coords[..., 1], b)
+                time_feat = time_features(self, raw_times, stn)
+                # v1 takes the grid time features from the output window
+                # only
+                time_feat_grid = time_features(
+                    self, raw_times[:, spec.input_dim:] if spec.version == 1
+                    else raw_times, cells)
+                feats = torch.cat(
+                    [(feats[..., :1] - spec.pm25_mean) / spec.pm25_std,
+                     feats[..., 1:]], dim=-1)
+                norm_stats = None
+                if spec.version == 3:
+                    simulation, norm_stats = self._normalize_cycles(
+                        simulation, prev_vals)
 
-        stn_loc = location_features(self, self.lats, self.lons, b)
-        grid_loc = location_features(self, self.cmaq_coords[..., 0],
-                                     self.cmaq_coords[..., 1], b)
-        time_feat = time_features(self, raw_times, stn)
-        # v1 takes the grid time features from the output window only
-        time_feat_grid = time_features(
-            self, raw_times[:, spec.input_dim:] if spec.version == 1
-            else raw_times, cells)
+            with annotate("grid.encode"):
+                stn_h = self.station_hidden_init.expand(b, stn, h_dim)
+                stn_c = self.station_cell_init.expand(b, stn, h_dim).reshape(
+                    b * stn, h_dim)
+                grid_h = self.grid_hidden_init.expand(b, cells, h_dim)
+                grid_c = self.grid_cell_init.expand(b, cells, h_dim).reshape(
+                    b * cells, h_dim)
+                for i in range(spec.input_dim):
+                    inp = torch.cat([feats[:, i].reshape(b * stn, -1),
+                                     time_feat[i], stn_loc], dim=-1)
+                    with annotate("grid.lstm"):
+                        h_new, stn_c = lstm_cell(
+                            self.station_encoder_lstm, inp,
+                            stn_h.reshape(b * stn, h_dim), stn_c)
+                    stn_h = h_new.reshape(b, stn, h_dim)
+                    if spec.version == 1:
+                        stn_h = residual_masked_attention(self.mha_e, stn_h,
+                                                          masks[:, i])
+                        continue
+                    with annotate("grid.step_input"):
+                        ginp = self._grid_step_input(
+                            simulation, i, time_feat_grid[i], grid_loc,
+                            standardize_pm=spec.version == 2)
+                    with annotate("grid.lstm"):
+                        g_new, grid_c = lstm_cell(
+                            grid_lstm, ginp, grid_h.reshape(b * cells, h_dim),
+                            grid_c)
+                    grid_h = g_new.reshape(b, cells, h_dim)
 
-        feats = torch.cat([(feats[..., :1] - spec.pm25_mean) / spec.pm25_std,
-                           feats[..., 1:]], dim=-1)
-        norm_stats = None
-        if spec.version == 3:
-            simulation, norm_stats = self._normalize_cycles(simulation,
-                                                            prev_vals)
+            with annotate("grid.decode"):
+                preds = []
+                for i in range(spec.output_dim):
+                    sinp = torch.cat([time_feat[i + spec.input_dim],
+                                      stn_loc], dim=-1)
+                    with annotate("grid.lstm"):
+                        h_new, stn_c = lstm_cell(
+                            self.station_decoder_lstm, sinp,
+                            stn_h.reshape(b * stn, h_dim), stn_c)
+                    stn_h = h_new.reshape(b, stn, h_dim)
+                    if spec.version == 1:
+                        # the output window's time features, the input
+                        # window's CMAQ block
+                        tfg, sim_step = time_feat_grid[i], i
+                    else:
+                        tfg, sim_step = (time_feat_grid[i + spec.input_dim],
+                                         i + spec.input_dim)
+                    with annotate("grid.step_input"):
+                        ginp = self._grid_step_input(
+                            simulation, sim_step, tfg, grid_loc,
+                            standardize_pm=True)
+                    with annotate("grid.lstm"):
+                        g_new, grid_c = lstm_cell(
+                            grid_lstm, ginp, grid_h.reshape(b * cells, h_dim),
+                            grid_c)
+                    grid_h = g_new.reshape(b, cells, h_dim)
 
-        # ---- encode ----
-        stn_h = self.station_hidden_init.expand(b, stn, h_dim)
-        stn_c = self.station_cell_init.expand(b, stn, h_dim).reshape(
-            b * stn, h_dim)
-        grid_h = self.grid_hidden_init.expand(b, cells, h_dim)
-        grid_c = self.grid_cell_init.expand(b, cells, h_dim).reshape(
-            b * cells, h_dim)
-        for i in range(spec.input_dim):
-            inp = torch.cat([feats[:, i].reshape(b * stn, -1), time_feat[i],
-                             stn_loc], dim=-1)
-            h_new, stn_c = lstm_cell(self.station_encoder_lstm, inp,
-                                     stn_h.reshape(b * stn, h_dim), stn_c)
-            stn_h = h_new.reshape(b, stn, h_dim)
-            if spec.version == 1:
-                stn_h = residual_masked_attention(self.mha_e, stn_h,
-                                                  masks[:, i])
-            else:
-                ginp = self._grid_step_input(
-                    simulation, i, time_feat_grid[i], grid_loc,
-                    standardize_pm=spec.version == 2)
-                g_new, grid_c = lstm_cell(grid_lstm, ginp,
-                                          grid_h.reshape(b * cells, h_dim),
-                                          grid_c)
-                grid_h = g_new.reshape(b, cells, h_dim)
-
-        # ---- decode ----
-        preds = []
-        for i in range(spec.output_dim):
-            sinp = torch.cat([time_feat[i + spec.input_dim], stn_loc], dim=-1)
-            h_new, stn_c = lstm_cell(self.station_decoder_lstm, sinp,
-                                     stn_h.reshape(b * stn, h_dim), stn_c)
-            stn_h = h_new.reshape(b, stn, h_dim)
-            if spec.version == 1:
-                # the output window's time features, the input window's
-                # CMAQ block
-                tfg, sim_step = time_feat_grid[i], i
-            else:
-                tfg, sim_step = (time_feat_grid[i + spec.input_dim],
-                                 i + spec.input_dim)
-            ginp = self._grid_step_input(simulation, sim_step, tfg, grid_loc,
-                                         standardize_pm=True)
-            g_new, grid_c = lstm_cell(grid_lstm, ginp,
-                                      grid_h.reshape(b * cells, h_dim), grid_c)
-            grid_h = g_new.reshape(b, cells, h_dim)
-
-            attended = joint_attention(self.mha_d, grid_h, stn_h,
-                                       masks[:, spec.input_dim + i])
-            result = self.last_fc(attended[:, :cells])      # (B, cells, 1)
-            method = spec.normalization_method
-            if spec.version == 3 and method == "RevIN":
-                result = self.revin_layer.denorm(
-                    norm_stats, result.transpose(1, 2)).transpose(1, 2)
-            elif spec.version == 3 and method == "DishTS":
-                result = self.dishts_layer.denorm(
-                    norm_stats, result.transpose(1, 2)).transpose(1, 2)
-            else:
-                result = result * spec.pm25_std + spec.pm25_mean
-            preds.append(F.relu(result))
-        return torch.cat(preds, dim=-1)
+                    with annotate("grid.joint_attn"):
+                        attended = joint_attention(
+                            self.mha_d, grid_h, stn_h,
+                            masks[:, spec.input_dim + i])
+                    with annotate("grid.head"):
+                        result = self.last_fc(attended[:, :cells])
+                        method = spec.normalization_method
+                        if spec.version == 3 and method == "RevIN":
+                            result = self.revin_layer.denorm(
+                                norm_stats, result.transpose(1, 2)
+                            ).transpose(1, 2)
+                        elif spec.version == 3 and method == "DishTS":
+                            result = self.dishts_layer.denorm(
+                                norm_stats, result.transpose(1, 2)
+                            ).transpose(1, 2)
+                        else:
+                            result = result * spec.pm25_std + spec.pm25_mean
+                        preds.append(F.relu(result))   # (B, cells, 1)
+                return torch.cat(preds, dim=-1)

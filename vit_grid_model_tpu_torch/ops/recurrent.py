@@ -12,6 +12,10 @@ live in ``nn.LSTMCell`` and ``nn.MultiheadAttention(E, 1)`` (keys
 * ``residual_masked_attention`` attends for every batch row and then keeps
   the update only for rows with a valid station, where the reference drops
   the other rows before attending (``model.py:352-355``).
+
+``attention_calls`` and ``score_elements`` count the calls of
+``mha_self_attention`` and the score elements (B * n * n) they formed,
+since ``reset_counts``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+attention_calls = 0
+score_elements = 0
+
+
+def reset_counts() -> None:
+    global attention_calls, score_elements
+    attention_calls = 0
+    score_elements = 0
 
 
 def lstm_cell(cell: nn.LSTMCell, x: Tensor, h: Tensor,
@@ -39,7 +52,10 @@ def mha_self_attention(mha: nn.MultiheadAttention, x: Tensor,
                        key_padding_mask: Optional[Tensor] = None) -> Tensor:
     """Single-head self-attention, batch first: x (B, N, E);
     ``key_padding_mask`` (B, N) bool, True excluding that key."""
-    e = x.shape[-1]
+    global attention_calls, score_elements
+    b, n, e = x.shape
+    attention_calls += 1
+    score_elements += b * n * n
     q, k, v = F.linear(x, mha.in_proj_weight, mha.in_proj_bias).chunk(3, -1)
     sim = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(e)
     if key_padding_mask is not None:

@@ -124,10 +124,11 @@ def span_paths(events) -> List[Span]:
     return out
 
 
-def kernels_by_span(events) -> Dict[str, List]:
-    """{span path: [seconds, launches]} of the device kernels (copies and
-    fills left out) among the profiler's ``events``, each counted in the
-    one span that owns it; "" holds those no span owns.
+def kernels_by_span(events, copies: bool = False) -> Dict[str, List]:
+    """{span path: [seconds, launches]} of the device kernels among the
+    profiler's ``events`` (with ``copies``, the device's copies and fills
+    too), each counted in the one span that owns it; "" holds those no span
+    owns.
 
     A kernel belongs to the innermost span that was open on its launching
     thread when its launch call (the host event of its correlation id)
@@ -143,7 +144,7 @@ def kernels_by_span(events) -> Dict[str, List]:
     table: Dict[str, List] = {}
     for ev in events:
         if (ev.device_type() != DeviceType.CUDA or ev.is_user_annotation()
-                or _is_copy(ev.name())):
+                or (_is_copy(ev.name()) and not copies)):
             continue
         owner = None
         if ev.correlation_id() in calls:
