@@ -151,9 +151,10 @@ station-image variant of the 12-hour model.  Phases:
    B = 4, (7, 12, 80, 64); (d) a ``trace`` with an ``annotate`` region
    writes its trace file, the region owns every kernel launched in it
    (``kernels_by_span``), and ``oom_guard`` rewraps a real CUDA
-   out-of-memory error.  No hand-written kernel launches in it (K1, K3,
-   K3-w and the hash counters stay at 0).  Each sub-phase prints its
-   seconds;
+   out-of-memory error.  No window-attention kernel launches in it (K1,
+   K3, K3-w and the hash counters stay at 0); the station and grid
+   models' joint attentions take the streaming kernel (phase 19 counts
+   them).  Each sub-phase prints its seconds;
 17. the eight legacy datasets and the station-image model: (a) on phase
    4's tree with ``write_station_images`` over its first 25 samples'
    window, at the shipped geometry (13 input, 12 output, 13 history
@@ -183,7 +184,18 @@ station-image variant of the 12-hour model.  Phases:
    device (the wrapper's host checks inside), the eager epilogue's and the
    plain version's; its launches counted by route; then
    one forward at B = 24 of the --fast and the f32 configurations, each 8
-   launches and no eager epilogue, with the routes they took.
+   launches and no eager epilogue, with the routes they took;
+19. the joint attention's streaming kernel (``ops/cuda/joint_attention.py``,
+   the core of ``ops/recurrent.py::mha_self_attention``: q k^T, scale, key
+   mask, safe softmax, P v) at the grid cell's shape, B 24 x 6,044 tokens
+   (82 x 67 cells + 400 + 150 stations) x E 128 in f32 with a tenth of the
+   station keys masked: held to the plain eager core (2e-5 of max), a
+   second launch bit-identical, its ms a launch over 20 back-to-back
+   launches (CUDA events) beside its bound (6.70 ms, operations at 67
+   TFLOP/s), the plain core's and SDPA's (a yardstick the port never
+   calls); then phase 16a's station forward and a grid model v3 forward
+   at the 13 + 12-hour widths (B 2), each launching the kernel once for
+   every attention it counts and running no eager core.
 
 Phases 3, 4, 6, 13a-c, 15a-b and 17b-c also read that kernel's counters
 (``norm_act_counts``): on every inference path 8 launches a forward and no
@@ -2989,7 +3001,8 @@ def utilities_on_the_card(model, inputs, dev, card: str, root: str):
 
 def legacy_path(dev, card: str, root: str):
     """Phase 16, in f32 with TF32 off (restored after): 16a-16d.  No
-    hand-written kernel may launch in it."""
+    window-attention kernel may launch in it.  Returns 16d's station model
+    and inputs on the card, for phase 19."""
     import torch
 
     from vit_grid_model_tpu_torch.ops.cuda import attention as cuda_attn
@@ -3032,6 +3045,7 @@ def legacy_path(dev, card: str, root: str):
                          for k, (e, ms) in {**station, **grid,
                                             "simvp": simvp}.items()}}}),
           flush=True)
+    return model, x
 
 
 # ---------------------------------------------------------------------------
@@ -3550,6 +3564,154 @@ def norm_act_path(dev, card: str):
     return err, ms, plain_ms, bound
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the joint attention's streaming kernel
+# ---------------------------------------------------------------------------
+
+# the grid cell's joint attention: B 24 over 82 x 67 cells and 400 + 150
+# stations, E 128, a tenth of the station keys masked
+JOINT_SHAPE = (24, 82 * 67 + 550, 128)
+JOINT_STATIONS = 550
+JOINT_STEPS = 20           # back-to-back launches timed for the kernel's ms
+# max|kernel - plain| / max|plain|: the sums over 6,044 keys run in another
+# order (seen: 6e-6)
+JOINT_TOLERANCE = 2e-5
+# the grid model v3 at the benchmark cell's hours (13 + 12, history 13)
+JOINT_GRID_SPEC = dict(LEGACY_SPEC, input_dim=13, output_dim=12, prev_len=13)
+JOINT_GRID_BATCH = 2
+# the kernel's launches on each path that runs it, by route
+JOINT_BY_PATH: dict = {}
+
+
+def joint_operands(shape, stations, seed, device="cuda"):
+    """The in-projection output (B, n, 3E) of seeded tokens and weights,
+    and a key mask with a tenth of the last ``stations`` keys masked."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, e = shape
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, n, e, generator=gen, device=dev)
+    w = torch.randn(3 * e, e, generator=gen, device=dev) / e ** 0.5
+    bias = torch.randn(3 * e, generator=gen, device=dev) * 0.1
+    mask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    mask[:, n - stations:] = torch.rand(b, stations, generator=gen,
+                                        device=dev) < 0.1
+    return F.linear(x, w, bias), mask
+
+
+def joint_attention_counts(path: str, forward) -> dict:
+    """One ``forward()`` in inference mode with the joint attention's
+    counters reset: raises unless it launched the kernel once for every
+    attention ``ops/recurrent.py`` counted, and ran no eager core.  Keeps
+    the routes under ``path`` and returns them."""
+    import torch
+
+    from vit_grid_model_tpu_torch.ops import recurrent
+    from vit_grid_model_tpu_torch.ops.cuda import joint_attention as cuda_joint
+
+    recurrent.reset_counts()
+    cuda_joint.reset_launches()
+    with torch.inference_mode():
+        forward()
+    torch.cuda.synchronize()
+    routes = dict(cuda_joint.launches_by_route)
+    calls = recurrent.attention_calls
+    if not calls or routes != {"streaming": calls} or (
+            cuda_joint.launches != calls):
+        raise AssertionError(f"{path}: joint attention routes {routes}, "
+                             f"{cuda_joint.launches} launches, {calls} "
+                             "attentions counted")
+    JOINT_BY_PATH[path] = routes
+    return routes
+
+
+def joint_grid_forward(dev):
+    """A grid model v3 at ``JOINT_GRID_SPEC`` over the 82 x 67 grid on the
+    card, and a forward of it on seeded inputs."""
+    import torch
+
+    from vit_grid_model_tpu_torch.core.weights import seeded_grid_model
+    from vit_grid_model_tpu_torch.models.legacy.grid import GridModelSpec
+
+    spec = GridModelSpec(**JOINT_GRID_SPEC, grid_shape=LEGACY_GRID,
+                         normalization_method="RevIN", version=3)
+    rng, io = legacy_station_io(spec, JOINT_GRID_BATCH, SEED + 19,
+                                grid=LEGACY_GRID)
+    steps = spec.input_dim + spec.output_dim
+    io["simulation"] = torch.from_numpy(
+        (rng.random((JOINT_GRID_BATCH,) + LEGACY_GRID
+                    + (steps * spec.block_channels,)) * 25).astype(
+            np.float32))
+    model = seeded_grid_model(spec, SEED).to(dev).eval()
+    x = {k: v.to(dev) for k, v in io.items()}
+    return lambda: model(**x)
+
+
+def joint_attention_path(dev, card: str, station_forward):
+    """Phase 19: the streaming kernel alone at the grid cell's shape, held
+    to the plain eager core, timed beside its bound, the plain core and
+    SDPA; then its routes on phase 16a's station forward and on a grid v3
+    forward.  Returns (error, ms, plain ms, bound, SDPA ms, grid
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_grid_model_tpu_torch.ops.cuda import joint_attention as cuda_joint
+    from vit_grid_model_tpu_torch.ops.recurrent import attention_core
+    from vit_grid_model_tpu_torch.repros.common import bound_ms, cuda_ms
+
+    t19 = time.perf_counter()
+    b, n, e = JOINT_SHAPE
+    qkv, mask = joint_operands(JOINT_SHAPE, JOINT_STATIONS, SEED + 19)
+    q, k, v = (t.unsqueeze(1) for t in qkv.chunk(3, -1))
+    keep = ~mask[:, None, None, :]
+    with torch.inference_mode():
+        ours = cuda_joint.joint_attention(qkv, mask)
+        again = cuda_joint.joint_attention(qkv, mask)
+        ref = attention_core(qkv, mask)
+        d, scale = kernel_errors(ours, again, ref, "joint_attention")
+        sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)[:, 0]
+        sdpa_err = (sdpa - ref).abs().max().item() / scale
+        del ours, again, ref, sdpa
+        ms = cuda_ms(lambda: cuda_joint.joint_attention(qkv, mask),
+                     iters=JOINT_STEPS)
+        plain_ms = median_ms(lambda: attention_core(qkv, mask))
+        sdpa_ms = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+    err = d / scale
+    if err > JOINT_TOLERANCE:
+        raise AssertionError(f"joint_attention: error {err}")
+    # q k^T and P v; q, k, v read and the output written once
+    bound = bound_ms(4 * b * n * n * e, b * n * 4 * e * 4, torch.float32)
+    print(f"joint_attention at {JOINT_SHAPE}, a tenth of "
+          f"{JOINT_STATIONS} station keys masked: {ms:.3f} ms a launch "
+          f"({JOINT_STEPS} back to back), "
+          f"{4 * b * n * n * e / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound[0] / ms:.1f}% of its bound {bound[0]:.3f} ms "
+          f"({bound[1]}); plain core {plain_ms:.3f} ms "
+          f"({plain_ms / ms:.2f}x); SDPA {sdpa_ms:.3f} ms (max|d| / max "
+          f"{sdpa_err:.2e}); max|d| / max {err:.2e}; card: {card}",
+          flush=True)
+    del qkv, mask, q, k, v, keep
+    torch.cuda.empty_cache()
+    station = joint_attention_counts("phase 16a station forward",
+                                     station_forward)
+    grid = joint_attention_counts(
+        f"grid v3 forward (B {JOINT_GRID_BATCH}, "
+        f"{JOINT_GRID_SPEC['output_dim']} leads)", joint_grid_forward(dev))
+    print(f"joint_attention routes: phase 16a's station forward {station}, "
+          f"a grid v3 forward {grid}; phase 19: "
+          f"{time.perf_counter() - t19:.1f} s", flush=True)
+    print(json.dumps({"phase19": {
+        "card": card, "shape": list(JOINT_SHAPE), "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "sdpa_ms": sdpa_ms, "sdpa_err": sdpa_err,
+        "routes": JOINT_BY_PATH}}), flush=True)
+    return err, ms, plain_ms, bound, sdpa_ms, grid["streaming"]
+
+
 def attention_bound_ms(bw, n, dim, heads, dh, item, backward=False):
     """(least ms, what bounds it) of the window attention at this shape: its
     products' operations (qkv, scores, P.v, out-projection) at the bf16
@@ -3856,7 +4018,7 @@ def run(root: str) -> int:
     print(f"phase 15b: {time.perf_counter() - t15:.1f} s", flush=True)
 
     t16 = time.perf_counter()
-    legacy_path(dev, card, root)
+    station_model, station_x = legacy_path(dev, card, root)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
     t17 = time.perf_counter()
@@ -3865,6 +4027,12 @@ def run(root: str) -> int:
 
     phase(18, "the Block epilogue kernel vs plain, and its routes")
     na_err, na_ms, na_plain_ms, na_bound = norm_act_path(dev, card)
+
+    phase(19, "the joint attention's streaming kernel vs plain, and its "
+          "routes")
+    ja_err, ja_ms, ja_plain_ms, ja_bound, ja_sdpa_ms, ja_launches = (
+        joint_attention_path(dev, card,
+                             lambda: station_model(**station_x)))
 
     err, k_ms, p_ms = report["bfloat16"]
     b_err, b_ms, r_ms, _, (w_err, w_ms, wp_ms, w_bound) = bwd_report[
@@ -3934,7 +4102,14 @@ def run(root: str) -> int:
         # bf16 channels_last block2 at the benchmark's map
         ("chan_norm_act", "chan_norm_act.cu", "none (XLA fused these ops)",
          sum(NORM_ACT_BY_PATH["evaluation"].values()), na_err, na_ms,
-         na_plain_ms, na_bound, None)]
+         na_plain_ms, na_bound, None),
+        # no TPU kernel: the JAX package's attention is plain jnp; the grid
+        # forward's launches, and the grid cell's shape; SDPA is the one
+        # PyTorch call of the same function (no row there is fully masked)
+        ("joint_attention", "joint_attention.cu",
+         "none (the JAX package's ops/recurrent.py::mha_self_attention is "
+         "plain jnp)", ja_launches, ja_err, ja_ms, ja_plain_ms, ja_bound,
+         ja_sdpa_ms)]
     # R1 and R14 at the repro's Bw = 2,880, R7 at the flagship S = 300
     ph = ph_results[2880]
     ph_bound = repro_perhead.bound_ms(
@@ -4046,14 +4221,15 @@ def run(root: str) -> int:
                "maxvit_layer_attention": "strip",
                "stacked_softmax_attention": "strip",
                "dropout_keep_mask": "chunks",
-               "chan_norm_act": "nhwc",
+               "chan_norm_act": "nhwc", "joint_attention": "streaming",
                "staged_attention_core": "ring"}
     designs.update({k[0]: "strip" for k in kernels
                     if k[0].startswith(("outproj_", "headpack_"))})
     # launches on the paths besides the main one, where a kernel has them,
     # by the design each launch took
     by_path = {"window_attention_fwd": fwd_by_path,
-               "chan_norm_act": NORM_ACT_BY_PATH}
+               "chan_norm_act": NORM_ACT_BY_PATH,
+               "joint_attention": JOINT_BY_PATH}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches, "max_abs_err": e,

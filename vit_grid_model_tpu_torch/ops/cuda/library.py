@@ -195,6 +195,8 @@ def load() -> ctypes.CDLL:
         lib.vgm_window_attention_bwd_smem_bytes.restype = ctypes.c_long
         lib.vgm_chan_norm_act.argtypes = [ptr] * 7 + [i32] * 9 + [f32, ptr]
         lib.vgm_chan_norm_act.restype = ctypes.c_int
+        lib.vgm_joint_attention.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.vgm_joint_attention.restype = ctypes.c_int
         lib.vgm_fused_mbconv_row_tile.argtypes = [i32] * 3
         lib.vgm_fused_mbconv_route.argtypes = [i32] * 7
         lib.vgm_fused_mbconv_packed_elems.argtypes = [i32] * 2
